@@ -8,9 +8,10 @@ plus a low-resolution depth map, by alternating masked least squares.
 The JAX package ``srmeetsps_cuda_tpu`` is the reference this port is held
 against; it is never imported here. The layout mirrors it module by
 module (``ops/``, ``pre/``, ``solve/``, ``models/``, ``runtime/``, ``io/``,
-``cli.py``). Plain tensor code is PyTorch; the depth CG, which the JAX
-package runs as a Pallas TPU kernel, is a hand-written CUDA kernel
-(``csrc/stencil_cg.cu``, wrapped by ``solve/stencil_cg.py``).
+``cli.py``, ``parallel/``). Plain tensor code is PyTorch; the depth CGs,
+which the JAX package runs as Pallas TPU kernels, are hand-written CUDA
+kernels (``csrc/stencil_cg.cu`` and ``csrc/cgs_cg.cu``, wrapped by
+``solve/stencil_cg.py`` and ``solve/cgs_cg.py``).
 """
 
 __version__ = "0.1.0"

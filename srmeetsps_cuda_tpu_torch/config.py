@@ -10,10 +10,10 @@ values as ``srmeetsps_cuda_tpu.config`` (a test holds the two together):
 - preprocessing: inpaint radius 16, bilateral sigma 2/2 (SRPS.cu:133,139).
 
 The TPU-only switches of the JAX config (Pallas routing, VMEM residency)
-have no counterpart: on a CUDA device the depth CG always runs the
-hand-written stencil kernel, on the CPU its plain PyTorch version, both
-with the energy tracked inside the CG (the JAX default kernel_energy).
-The bf16 image stack is not ported yet.
+have no counterpart: on a CUDA device the depth CG always runs a
+hand-written kernel (the stencil CG with the energy tracked inside it, the
+JAX default kernel_energy, or the Chronopoulos-Gear CG), on the CPU its
+plain PyTorch version. The bf16 image stack is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ class SolverConfig:
     inpaint_iters: Optional[int] = None
     # Jacobi-preconditioned depth CG: the plain CPU path only so far.
     jacobi_preconditioner: bool = False
-    # "pipe" = standard CG; "cgs" (Chronopoulos-Gear) is not ported yet and
-    # raises rather than running another solver.
+    # "pipe" = standard CG (csrc/stencil_cg.cu); "cgs" = Chronopoulos-Gear
+    # CG, one sweep and one reduction per iteration (csrc/cgs_cg.cu).
     cg_variant: str = "pipe"
 
 
@@ -66,6 +66,10 @@ class RuntimeConfig:
     # The whole outer loop without per-phase host timing: one host read
     # (the stop test) per outer iteration.
     fused_outer_loop: bool = False
+    # Multi-object solves: "stream" (lanes through the single solve, one
+    # after another), "lockstep" (one lane-batched CG launch per outer
+    # iteration) or "auto" (stream on one device).
+    batch_mode: str = "auto"
 
 
 DEFAULT_SOLVER = SolverConfig()

@@ -3,10 +3,14 @@
 :func:`problem_from_numpy` and :func:`state_from_numpy` take an object with
 the fields of ``srmeetsps_cuda_tpu``'s ``SRPSProblem``/``SRPSState`` (the
 NamedTuples themselves, or a mapping), read each field with ``np.asarray``
-and build the port's container on ``device``. Nothing of JAX is imported:
-its arrays convert through the numpy array protocol. The TPU-padded
-``z0up`` planes are not read; the port builds its unpadded energy planes
-from ``masks`` and ``z0s``. :func:`to_numpy` goes the other way.
+and build the port's container on ``device``. A stacked container (the
+output of the JAX ``batched.stack_problems``/``stack_states``, a leading
+lane axis on every field) becomes the port's stacked container, whose
+host scalars ``fx``, ``fy`` and ``iteration`` are (B,) tensors, as
+``parallel/batched.py`` stacks them. Nothing of JAX is imported: its
+arrays convert through the numpy array protocol. The TPU-padded ``z0up``
+planes are not read; the port builds its unpadded energy planes from
+``masks`` and ``z0s``. :func:`to_numpy` goes the other way.
 """
 
 from __future__ import annotations
@@ -29,14 +33,20 @@ def _tensor(a, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
+def _host_scalar(a, cast, dtype):
+    """A host scalar of one problem, or a (B,) tensor of a stacked one."""
+    a = np.asarray(a)
+    return cast(a) if a.ndim == 0 else torch.as_tensor(np.array(a), dtype=dtype)
+
+
 def problem_from_numpy(prob, device) -> SRPSProblem:
     t = lambda k: _tensor(_field(prob, k), device)  # noqa: E731
     mask, masks, z0s = t("mask"), t("masks"), t("z0s")
-    sf = mask.shape[0] // masks.shape[0]
+    sf = mask.shape[-2] // masks.shape[-2]
     return SRPSProblem(
         I=t("I"), mask=mask, masks=masks, z0s=z0s, xx=t("xx"), yy=t("yy"),
-        fx=float(np.asarray(_field(prob, "fx"))),
-        fy=float(np.asarray(_field(prob, "fy"))),
+        fx=_host_scalar(_field(prob, "fx"), float, torch.float32),
+        fy=_host_scalar(_field(prob, "fy"), float, torch.float32),
         gm=GradientMasks(*(_tensor(m, device) for m in _field(prob, "gm"))),
         SI2=t("SI2"), z0t=t("z0t"), ktw=t("ktw"),
         z0u=energy_planes(masks, z0s, sf))
@@ -47,7 +57,7 @@ def state_from_numpy(state, device) -> SRPSState:
     return SRPSState(
         z=t("z"), rho=t("rho"), s=t("s"), N=t("N"), dz=t("dz"),
         energy=t("energy"), last_energy=t("last_energy"),
-        iteration=int(np.asarray(_field(state, "iteration"))),
+        iteration=_host_scalar(_field(state, "iteration"), int, torch.int32),
         cg_iters=_tensor(_field(state, "cg_iters"), device, torch.int32))
 
 

@@ -12,8 +12,9 @@ devicecalls.cu). The structure is the JAX package's:
 * **Depth**: ``A^T A`` of the linearised normal-consistency term collapses
   onto six per-pixel Gram fields ``P..`` and the rhs onto ``QB1..3``; the
   CG then runs on the 9-point stencil form of ``M = KT^T KT + lam A^T A``
-  (``solve/stencil_cg.py``): the hand-written CUDA kernel on a CUDA device,
-  its plain PyTorch version on the CPU.
+  (``solve/stencil_cg.py``, or ``solve/cgs_cg.py`` for the
+  Chronopoulos-Gear variant): the hand-written CUDA kernel on a CUDA
+  device, its plain PyTorch version on the CPU.
 
 State lives on dense ``(h, w)`` grids zeroed outside the mask. Contractions
 run in full float32 (``device.set_precision``), as the JAX package's
@@ -35,6 +36,7 @@ from ..ops import grid as gridops
 from ..ops.gradients import GradientMasks
 from ..ops.normals import normals_from_depth
 from ..solve.cg import conjugate_gradient
+from ..solve.cgs_cg import cgs_cg
 from ..solve.stencil_cg import (depth_rhs_fields, energy_planes, make_ktw,
                                 stencil_cg)
 
@@ -412,13 +414,13 @@ def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
 
     Plain CG runs :func:`stencil_cg` — the CUDA kernel for a CUDA ``z``,
     its plain version for a CPU one — with the energy tracked inside the
-    CG. Jacobi preconditioning runs the generic PCG on the CPU and is not
-    ported to CUDA yet. Returns ``(z_new, energy, cg_iterations)`` as
-    device tensors."""
-    if cfg.cg_variant != "pipe":
-        raise NotImplementedError(
-            f"cg_variant={cfg.cg_variant!r} (Chronopoulos-Gear CG) is not "
-            "yet ported; see ROADMAP.md Queue 2, kernel 3")
+    CG; ``cg_variant="cgs"`` runs :func:`cgs_cg` the same way and evaluates
+    the energy at its result (srps.py:615-617 of the JAX package). Jacobi
+    preconditioning, of either variant, runs the generic PCG on the CPU and
+    is not ported to CUDA yet. Returns ``(z_new, energy, cg_iterations)``
+    as device tensors."""
+    if cfg.cg_variant not in ("pipe", "cgs"):
+        raise ValueError(f"unknown cg_variant {cfg.cg_variant!r}")
     lam = cfg.lam
     op = build_depth_operator(prob, mom, rho, dz, lam)
     if cfg.jacobi_preconditioner:
@@ -434,6 +436,12 @@ def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
             precond=lambda r: r / diag)
         z_new = res.x * prob.mask
         return z_new, depth_energy(z_new, op, prob, sf, lam), res.iterations
+    if cfg.cg_variant == "cgs":
+        x, iters, _ = cgs_cg(z, op, prob.gm, prob.ktw, prob.z0t, sf=sf,
+                             lam=lam, tol=cfg.cg_tol,
+                             max_iter=cfg.cg_max_iter, block=block)
+        z_new = x * prob.mask
+        return z_new, depth_energy(z_new, op, prob, sf, lam), iters
     x, iters, _, e_part = stencil_cg(
         z, op, prob.gm, prob.ktw, prob.z0t, prob.z0u, sf=sf, lam=lam,
         tol=cfg.cg_tol, max_iter=cfg.cg_max_iter, block=block)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface under ``_build/`` (git-ignored), named by a hash of the
-source and the flags, and is bound with ``ctypes``. Nothing is compiled or
-loaded when a module is imported: the CPU tests import every module on
-machines with no CUDA toolkit.
+source, the shared headers ``csrc/*.cuh`` and the flags, and is bound with
+``ctypes``; :func:`build_all` runs one ``nvcc`` per source, all at once.
+Nothing is compiled or loaded when a module is imported: the CPU tests
+import every module on machines with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
@@ -65,6 +67,15 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_all(names) -> list[Path]:
+    """:func:`build` of every name, one ``nvcc`` process each, in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

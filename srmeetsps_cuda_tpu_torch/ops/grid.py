@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def box_downsample(z: torch.Tensor, sf: int) -> torch.Tensor:
@@ -96,3 +97,14 @@ def masked_scatter_colmajor(values, mask) -> np.ndarray:
     out = np.zeros(m.shape, dtype=np.asarray(values).dtype)
     out.T[m.T] = values
     return out
+
+
+def pad_to_multiple(arr: torch.Tensor, mh: int, mw: int, value: float = 0.0):
+    """Pad the trailing two dims at their far ends up to multiples of
+    ``(mh, mw)``. Returns ``(padded, (h, w))`` with the original size."""
+    h, w = arr.shape[-2:]
+    ph = (-h) % mh
+    pw = (-w) % mw
+    if ph == 0 and pw == 0:
+        return arr, (h, w)
+    return F.pad(arr, (0, pw, 0, ph), value=value), (h, w)

@@ -1,1 +1,2 @@
-"""Depth linear solvers: generic CG and the stencil CG kernel."""
+"""Depth linear solvers: generic CG, the stencil CG and the
+Chronopoulos-Gear CG kernels."""

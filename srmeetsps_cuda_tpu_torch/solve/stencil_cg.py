@@ -1,19 +1,21 @@
 """Depth CG through the 9-point stencil collapse of the depth operator.
 
 Port of the TPU kernel ``srmeetsps_cuda_tpu/solve/pallas_cg_vmem.py::
-_kernel_vmem_stencil`` (reached through ``cg_pallas_vmem_fromop``, srps.py:
-574-578), in its main-path form: plain CG, energy tracked, one problem,
-sf in {1, 2, 4}. Two versions of one function live here:
+_kernel_vmem_stencil`` (reached through ``cg_pallas_vmem_fromop[_batched]``,
+srps.py:574-578, batched.py:165-173), in its main-path form: plain CG,
+energy tracked, B >= 1 lanes, sf in {1, 2, 4}. Two versions of one
+function live here:
 
-* :func:`stencil_cg_plain` — plain PyTorch. The CPU path and the tests use
-  it; on a CUDA device it serves only as the reference the kernel is held
-  against.
+* :func:`stencil_cg_plain` — plain PyTorch, on ``(h, w)`` planes or on
+  ``(B, h, w)`` lanes. The CPU path and the tests use it; on a CUDA device
+  it serves only as the reference the kernel is held against.
 * :func:`stencil_cg` — the wrapper of the hand-written CUDA kernels in
-  ``csrc/stencil_cg.cu``. A CPU tensor takes the plain version; a CUDA
-  tensor launches the kernels or raises. ``stencil_cg.launches`` counts
-  the kernel runs.
+  ``csrc/stencil_cg.cu``: one problem (h, w) as the B = 1 case of a lane
+  batch (B, h, w), all lanes in one launch. A CPU tensor takes the plain
+  version; a CUDA tensor launches the kernels or raises.
+  ``stencil_cg.launches`` counts the kernel runs.
 
-Both compute, from the warm start ``x0``:
+Both compute, per lane, from the warm start ``x0``:
 
 * the 9 coefficient planes ``C = [C0, C+x, C-x, C+y, C-y, C+x+y, C+x-y,
   C-x+y, C-x-y]`` of ``M = KT^T KT + lam A^T A`` with ``(M v)[i] = sum_d
@@ -27,7 +29,7 @@ Both compute, from the warm start ``x0``:
   ``r1 <= tol^2`` or after ``max_iter + 1`` iterations.
 
 The kernel is bound by memory bandwidth: about 19 f32 planes move per
-iteration (93 MB at 960 x 1280) against about 40 flops per pixel.
+iteration and lane (93 MB at 960 x 1280) against about 27 flops per pixel.
 """
 
 from __future__ import annotations
@@ -45,6 +47,18 @@ N_STENCIL = 9
 S_R1, S_E, S_ITERS = 1, 5, 7
 N_SCAL = 9
 MAX_BLOCK_THREADS = 1024
+F_ROWS = ("P11", "P12", "P13", "P22", "P23", "P33", "fwd_x", "bwd_x",
+          "fwd_y", "bwd_y", "ktw")
+
+
+def lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``<a, b>`` over the trailing (h, w) plane of each lane."""
+    return torch.sum(a * b, dim=(-2, -1))
+
+
+def per_pixel(s: torch.Tensor) -> torch.Tensor:
+    """A per-lane scalar broadcast over its lane's (h, w) plane."""
+    return s[..., None, None]
 
 
 def make_ktw(mask: torch.Tensor, masks: torch.Tensor, sf: int) -> torch.Tensor:
@@ -54,17 +68,17 @@ def make_ktw(mask: torch.Tensor, masks: torch.Tensor, sf: int) -> torch.Tensor:
 
 
 def energy_planes(masks: torch.Tensor, z0s: torch.Tensor, sf: int) -> torch.Tensor:
-    """(2, h, w): ``up(masks)`` and ``up(masks * z0s)``, the loop-invariant
-    planes of the KT term of the energy (pallas_cg_vmem.py:339-351, without
-    the TPU padding)."""
+    """(..., 2, h, w): ``up(masks)`` and ``up(masks * z0s)``, the
+    loop-invariant planes of the KT term of the energy
+    (pallas_cg_vmem.py:339-351, without the TPU padding)."""
     s2 = float(sf * sf)
     u1 = box_upsample_adjoint(masks, sf) * s2
     u2 = box_upsample_adjoint(z0s * masks, sf) * s2
-    return torch.stack([u1, u2])
+    return torch.stack([u1, u2], dim=-3)
 
 
 def build_c_planes(op, gm, ktw: torch.Tensor, lam: float, sf: int) -> torch.Tensor:
-    """The (9, h, w) stencil planes of M (``_build_c_band``).
+    """The (..., 9, h, w) stencil planes of M (``_build_c_band``).
 
     Expanding ``Dx' P Dx``-type products with the exclusive fwd/bwd masks
     (a*b = 0, a^2 = a) cancels every +-2 offset, so A^T A has 3x3 support;
@@ -101,7 +115,7 @@ def build_c_planes(op, gm, ktw: torch.Tensor, lam: float, sf: int) -> torch.Tens
     if sf == 1:
         cs[0] = cs[0] + ktw
     elif sf == 2:
-        h, w = ktw.shape
+        h, w = ktw.shape[-2:]
         dev = ktw.device
         pxe = (torch.arange(w, device=dev) % 2 == 0)[None, :]
         pye = (torch.arange(h, device=dev) % 2 == 0)[:, None]
@@ -117,18 +131,19 @@ def build_c_planes(op, gm, ktw: torch.Tensor, lam: float, sf: int) -> torch.Tens
         cs[6] = cs[6] + torch.where(pye, zero, kxe)
         cs[7] = cs[7] + torch.where(pye, kxo, zero)
         cs[8] = cs[8] + torch.where(pye, zero, kxo)
-    return torch.stack(cs)
+    return torch.stack(cs, dim=-3)
 
 
 def stencil_matvec(C: torch.Tensor, v: torch.Tensor, ktw: torch.Tensor,
                    sf: int) -> torch.Tensor:
     """``M v = sum_d C_d v[i + d]`` (+ ``ktw * tilesum(v)`` at sf = 4)."""
     sh = gradops.shift
+    c = C.unbind(-3)
     pe = sh(v, 0, 1)
     pw = sh(v, 0, -1)
-    w = (C[0] * v + C[1] * pe + C[2] * pw + C[3] * sh(v, 1, 0)
-         + C[4] * sh(v, -1, 0) + C[5] * sh(pe, 1, 0) + C[6] * sh(pe, -1, 0)
-         + C[7] * sh(pw, 1, 0) + C[8] * sh(pw, -1, 0))
+    w = (c[0] * v + c[1] * pe + c[2] * pw + c[3] * sh(v, 1, 0)
+         + c[4] * sh(v, -1, 0) + c[5] * sh(pe, 1, 0) + c[6] * sh(pe, -1, 0)
+         + c[7] * sh(pw, 1, 0) + c[8] * sh(pw, -1, 0))
     if sf == 4:
         w = w + ktw * tilesum(v, sf)
     return w
@@ -150,29 +165,31 @@ def warm_start_energy(x: torch.Tensor, op, gm, z0u: torch.Tensor, lam: float,
     quad = (op.P11 * g * g + op.P22 * h * h + op.P33 * x * x
             + 2.0 * (op.P12 * g * h - op.P13 * g * x - op.P23 * h * x))
     lin = op.QB1 * g + op.QB2 * h - op.QB3 * x
-    edata = torch.sum(quad - 2.0 * lin)
+    edata = torch.sum(quad - 2.0 * lin, dim=(-2, -1))
     t = tilesum(x, sf) * (1.0 / (sf * sf))
-    rkt = z0u[0] * t - z0u[1]
-    ekt = torch.sum(rkt * rkt) * (1.0 / (sf * sf))
+    rkt = z0u[..., 0, :, :] * t - z0u[..., 1, :, :]
+    ekt = torch.sum(rkt * rkt, dim=(-2, -1)) * (1.0 / (sf * sf))
     return ekt + lam * edata
 
 
 def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
                      tol: float = 1e-9, max_iter: int = 100, planes: bool = False):
-    """Plain PyTorch version of the kernel. Returns ``(x, iters, r1,
-    e_part)`` (and the C planes with ``planes=True``) as device tensors;
-    an ``active`` flag on the device replaces the early exit, so nothing is
-    read back to the host."""
+    """Plain PyTorch version of the kernel, on ``(h, w)`` planes or
+    ``(B, h, w)`` lanes (every input with the same leading axis). Returns
+    ``(x, iters, r1, e_part)`` (and the C planes with ``planes=True``) as
+    device tensors, the scalars one per lane; an ``active`` flag per lane
+    on the device replaces the early exit, so nothing is read back to the
+    host."""
     C = build_c_planes(op, gm, ktw, lam, sf)
     tol_sq = tol_squared(tol)
     x = x0
     r = depth_rhs_fields(op, gm, z0t, lam) - stencil_matvec(C, x0, ktw, sf)
     e = warm_start_energy(x0, op, gm, z0u, lam, sf)
-    r1 = torch.sum(r * r)
+    r1 = lane_dot(r, r)
     r0 = torch.zeros_like(r1)
     p = torch.zeros_like(x0)
-    active = torch.ones((), dtype=torch.bool, device=x0.device)
-    iters = torch.zeros((), dtype=torch.int32, device=x0.device)
+    active = torch.ones(r1.shape, dtype=torch.bool, device=x0.device)
+    iters = torch.zeros(r1.shape, dtype=torch.int32, device=x0.device)
     for k in range(1, max_iter + 2):
         active = active & (r1 > tol_sq)
         iters = iters + active.to(torch.int32)
@@ -180,16 +197,17 @@ def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
             beta = torch.zeros_like(r1)
         else:
             beta = r1 / torch.where(r0 == 0, torch.ones_like(r0), r0)
-        p_new = r + beta * p
+        p_new = r + per_pixel(beta) * p
         w = stencil_matvec(C, p_new, ktw, sf)
-        pw = torch.sum(p_new * w)
+        pw = lane_dot(p_new, w)
         alpha = r1 / torch.where(pw == 0, torch.ones_like(pw), pw)
         e = torch.where(active, e - alpha * r1, e)
-        x = torch.where(active, x + alpha * p_new, x)
-        r_new = r - alpha * w
-        rr = torch.sum(r_new * r_new)
-        r = torch.where(active, r_new, r)
-        p = torch.where(active, p_new, p)
+        on = per_pixel(active)
+        x = torch.where(on, x + per_pixel(alpha) * p_new, x)
+        r_new = r - per_pixel(alpha) * w
+        rr = lane_dot(r_new, r_new)
+        r = torch.where(on, r_new, r)
+        p = torch.where(on, p_new, p)
         r0 = torch.where(active, r1, r0)
         r1 = torch.where(active, rr, r1)
     out = (x, iters, r1, e)
@@ -202,13 +220,15 @@ def _library():
 
     lib = native.load("stencil_cg")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.srps_stencil_cg.argtypes = [vp] * 12 + [ci, ci, ci, cf, cf, ci, ci,
-                                                 ci, vp]
+    lib.srps_stencil_cg.argtypes = [vp] * 12 + [ci, ci, ci, ci, cf, cf, ci,
+                                                 ci, ci, vp]
     lib.srps_stencil_cg.restype = ci
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device``: what the CUDA kernels take."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -219,22 +239,20 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
-               tol: float = 1e-9, max_iter: int = 100, block=(256, 4),
-               planes: bool = False):
-    """The depth CG: the CUDA kernels for a CUDA ``x0``, the plain version
-    for a CPU ``x0``. ``block`` is the (x, y) thread-block shape of the
-    kernels. Returns ``(x, iters, r1, e_part)`` like
-    ``cg_pallas_vmem_fromop(..., with_energy=True)``, plus the C planes with
-    ``planes=True``."""
-    if x0.device.type == "cpu":
-        return stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, sf=sf, lam=lam,
-                                tol=tol, max_iter=max_iter, planes=planes)
+def pack_lanes(kernel: str, x0, op, gm, ktw, z0t, *, sf: int, max_iter: int,
+               block):
+    """Check the inputs of a CUDA launch over the lanes of ``x0`` (B, h, w)
+    and stack the packs every depth-CG kernel reads: F (B, 11, h, w) =
+    [P11..P33, fwd_x, bwd_x, fwd_y, bwd_y, ktw] and R0 (B, 4, h, w) =
+    [QB1, QB2, QB3, z0t]. Returns ``(F, R0, (bx, by), blocks per lane)``."""
     if x0.device.type != "cuda":
-        raise ValueError(f"stencil_cg runs on cpu or cuda, not {x0.device}")
+        raise ValueError(f"{kernel} runs on cpu or cuda, not {x0.device}")
+    if x0.dim() != 3:
+        raise ValueError(f"{kernel}: x0 must be (B, h, w), got "
+                         f"{tuple(x0.shape)}")
     if sf not in (1, 2, 4):
         raise ValueError(f"unsupported sf: {sf}")
-    h, w = x0.shape
+    B, h, w = x0.shape
     if h % sf or w % sf:
         raise ValueError(f"grid ({h}, {w}) is not a multiple of sf={sf}")
     bx, by = (int(b) for b in block)
@@ -242,33 +260,63 @@ def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
         raise ValueError(f"thread block {bx}x{by} must hold 1..1024 threads")
     if max_iter < 0:
         raise ValueError(f"max_iter must be >= 0, got {max_iter}")
-    dev = x0.device
     fields = {"P11": op.P11, "P12": op.P12, "P13": op.P13, "P22": op.P22,
               "P23": op.P23, "P33": op.P33, "fwd_x": gm[0], "bwd_x": gm[1],
               "fwd_y": gm[2], "bwd_y": gm[3], "ktw": ktw, "QB1": op.QB1,
               "QB2": op.QB2, "QB3": op.QB3, "z0t": z0t, "x0": x0}
     for name, t in fields.items():
-        _check(name, t, (h, w), dev)
-    _check("z0u", z0u, (2, h, w), dev)
-    F = torch.stack([fields[k] for k in ("P11", "P12", "P13", "P22", "P23",
-                                          "P33", "fwd_x", "bwd_x", "fwd_y",
-                                          "bwd_y", "ktw")])
-    R0 = torch.stack([op.QB1, op.QB2, op.QB3, z0t])
+        check_tensor(name, t, (B, h, w), x0.device)
+    F = torch.stack([fields[k] for k in F_ROWS], dim=1)
+    R0 = torch.stack([op.QB1, op.QB2, op.QB3, z0t], dim=1)
+    return F, R0, (bx, by), (-(-w // bx)) * (-(-h // by))
+
+
+def one_lane(x0, op, gm, *planes):
+    """(h, w) inputs of one problem as a lane batch of B = 1."""
+    one = lambda t: t.unsqueeze(0)  # noqa: E731
+    return (one(x0), type(op)(*map(one, op)), type(gm)(*map(one, gm)),
+            *map(one, planes))
+
+
+def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
+               tol: float = 1e-9, max_iter: int = 100, block=(256, 4),
+               planes: bool = False):
+    """The depth CG: the CUDA kernels for a CUDA ``x0``, the plain version
+    for a CPU one. ``x0`` is (h, w) for one problem or (B, h, w) for B
+    lanes in one launch; every other input carries the same leading axes
+    (``z0u`` is (..., 2, h, w)). ``block`` is the (x, y) thread-block
+    shape. Returns ``(x, iters, r1, e_part)`` like
+    ``cg_pallas_vmem_fromop[_batched](..., with_energy=True)``, the scalars
+    one per lane, plus the C planes (..., 9, h, w) with ``planes=True``.
+    Each lane's result is bit for bit that of its own B = 1 launch."""
+    if x0.device.type == "cpu":
+        return stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, sf=sf, lam=lam,
+                                tol=tol, max_iter=max_iter, planes=planes)
+    if x0.dim() == 2:
+        out = stencil_cg(*one_lane(x0, op, gm, ktw, z0t, z0u), sf=sf,
+                         lam=lam, tol=tol, max_iter=max_iter, block=block,
+                         planes=planes)
+        return tuple(t[0] for t in out)
+    F, R0, (bx, by), nb = pack_lanes("stencil_cg", x0, op, gm, ktw, z0t,
+                                     sf=sf, max_iter=max_iter, block=block)
+    B, h, w = x0.shape
+    dev = x0.device
+    check_tensor("z0u", z0u, (B, 2, h, w), dev)
     x, r, p0, p1, wv = (torch.empty_like(x0) for _ in range(5))
-    C = torch.empty((N_STENCIL, h, w), dtype=torch.float32, device=dev)
-    nb = (-(-w // bx)) * (-(-h // by))
-    part = torch.empty(2 * nb, dtype=torch.float32, device=dev)
-    scal = torch.empty(N_SCAL, dtype=torch.float32, device=dev)
+    C = torch.empty((B, N_STENCIL, h, w), dtype=torch.float32, device=dev)
+    part = torch.empty(B * 2 * nb, dtype=torch.float32, device=dev)
+    scal = torch.empty((B, N_SCAL), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().srps_stencil_cg(
         F.data_ptr(), R0.data_ptr(), z0u.data_ptr(), x0.data_ptr(),
         x.data_ptr(), r.data_ptr(), p0.data_ptr(), p1.data_ptr(),
         wv.data_ptr(), C.data_ptr(), part.data_ptr(), scal.data_ptr(),
-        h, w, sf, float(lam), tol_squared(tol), int(max_iter), bx, by, stream)
+        B, h, w, sf, float(lam), tol_squared(tol), int(max_iter), bx, by,
+        stream)
     if err != 0:
         raise RuntimeError(f"stencil CG kernel launch failed: CUDA error {err}")
     stencil_cg.launches += 1
-    out = (x, scal[S_ITERS].to(torch.int32), scal[S_R1], scal[S_E])
+    out = (x, scal[:, S_ITERS].to(torch.int32), scal[:, S_R1], scal[:, S_E])
     return out + (C,) if planes else out
 
 

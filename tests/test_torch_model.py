@@ -174,18 +174,16 @@ def test_should_stop_semantics():
 
 @pytest.mark.parametrize("case", ["cgs", "jacobi-off-cpu"])
 def test_unported_depth_solvers_raise(pair, case):
-    """CGS anywhere, and Jacobi off the CPU (a meta tensor stands in for a
-    CUDA one), refuse before any arithmetic instead of running another
-    solver."""
+    """Jacobi off the CPU (a meta tensor stands in for a CUDA one), with
+    the standard or the CGS variant, refuses before any arithmetic instead
+    of running another solver."""
     jp, js, sf = pair
     tp = interop.problem_from_numpy(jp, CPU)
     ts = interop.state_from_numpy(js, CPU)
     mom = tsrps.s_moments(tp, ts.s)
-    if case == "cgs":
-        cfg, z = tconfig.SolverConfig(cg_variant="cgs"), ts.z
-    else:
-        cfg = tconfig.SolverConfig(jacobi_preconditioner=True)
-        z = ts.z.to("meta")
+    variant = "cgs" if case == "cgs" else "pipe"
+    cfg = tconfig.SolverConfig(jacobi_preconditioner=True, cg_variant=variant)
+    z = ts.z.to("meta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsrps.estimate_depth(tp, mom, ts.rho, ts.dz, z, sf, cfg)
 
