@@ -18,10 +18,18 @@ falls back to the CPU or to a plain version):
    lane bit for bit its B = 1 launch, the batch against the plain version,
    ms per CG iteration of the batch and of four solo launches;
 3c. the Chronopoulos-Gear CG kernel against its plain version on the three
-   grids of phase 3, from the main path's warm start and from a cold start
-   x0 = 0, at two thread-block shapes: iteration counts, the update x - x0
-   and gamma = <r, r> after 2 and 12 iterations (bounds at CGS_UPD and
-   CGS_GAMMA), B = 4 lanes bit for bit their solo launches;
+   grids of phase 3 (``cg_vs_plain``), 4 seeds, from the main path's warm
+   start and from a cold start x0 = 0, at two thread-block shapes:
+   iteration counts, the update x - x0 and gamma = <r, r> after 2 and 12
+   iterations (bounds at UPD_BOUND and RES_BOUND), B = 4 lanes bit for bit
+   their solo launches;
+3d. the Jacobi forms of the stencil CG (``invd``) the same way on the grids
+   of phase 3 and at 960 x 1280 sf = 4, with the reported residual in place
+   of gamma, C' bit-equal, and the tracked energy from the warm start at
+   phase 3's bound at every cap;
+3e. 1088 x 1920, sf = 2 (the grid the TPU serves with
+   ``_kernel_vmem_hybrid_stencil``): the stencil CG plain with phase 3's
+   checks and Jacobi with phase 3d's;
 4. the main path through the CLI entry point on a 960 x 1280, n = 20, c = 3,
    sf = 2 dataset written as a MAT v5 file: finite energies, the reference's
    stopping rule, a finite depth, every depth CG through the kernel; and the
@@ -36,11 +44,22 @@ falls back to the CPU or to a plain version):
    iteration, lockstep lanes bit for bit the stream lanes, and the lanes of
    the phase-4 file bit for bit its single CGS solve;
 4d. ``--serve``: two single requests and one comma request answer with the
-   iterations and energies of phases 4 and 4b.
+   iterations and energies of phases 4 and 4b, and a ``--jacobi`` request
+   with those of phase 4e;
+4e. ``--jacobi`` through the CLI on the phase-4 file (scaled form) and on a
+   960 x 1280 sf = 4 file (PCG form): every depth CG one Jacobi launch, no
+   CGS launch, the phase-4 checks; the whole Jacobi solve on a small input
+   against the CPU;
+4f. the 4b run with ``--jacobi``, then with ``--jacobi --cg-variant cgs``:
+   lockstep equals stream, one lane-batched Jacobi launch per outer
+   iteration, no CGS launch;
+4g. a 1088 x 1920, n = 20, c = 3, sf = 2 file (BASELINE.md configuration
+   5) through the CLI with the standard CG and with ``--jacobi``.
 
-The line before the last is a JSON object with one entry per kernel (its
-times per CG iteration at 960 x 1280, sf = 2, and the least time the card
-could take for the same work); the last line is
+The line before the last but one is a JSON object with one entry per
+kernel and mode (its times per CG iteration at the main path's shapes, and
+the least time the card could take for the same work), the line before the
+last the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -72,9 +91,15 @@ E_RTOL = 5e-4
 # (sf 1; 1.8e-2 at sf 2), cold 2.6e-7; gamma warm 1.7e-2, cold 3.6e-5
 # after 2 and 7.2e-4 after 12 iterations. x0 returned unchanged, or a wrong
 # alpha, beta, s or p recurrence, fails these bounds on every grid
-# (tools/cgs_fault_check.py, with faulty copies of the plain version).
-CGS_UPD = {"warm": {2: 0.25, 12: 0.25}, "cold": {2: 1e-5, 12: 1e-5}}
-CGS_GAMMA = {"warm": {2: 0.1, 12: 0.1}, "cold": {2: 5e-4, 12: 1e-2}}
+# (tests/test_torch_cgs.py::test_chip_bounds_catch_faulty_recurrences).
+# The same bounds hold the Jacobi forms (phase 3d, reported residual in
+# place of gamma, and the warm-start energy at phase 3's bound): a float64
+# run of the plain version stays inside them and x0 returned, s_i^2 for
+# s_i s_i+d, r0 unscaled, x = x0 + y, beta = 0, e0 at y = 0 and (PCG) p
+# built from r or the energy from <r, r> fail them on every grid
+# (tests/test_torch_jacobi.py::test_chip_bounds_catch_faulty_recurrences).
+UPD_BOUND = {"warm": {2: 0.25, 12: 0.25}, "cold": {2: 1e-5, 12: 1e-5}}
+RES_BOUND = {"warm": {2: 0.1, 12: 0.1}, "cold": {2: 5e-4, 12: 1e-2}}
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -85,26 +110,36 @@ F32_FLOPS_PER_S = 67e12
 # 12; the sf = 4 tile sum adds 2).
 STENCIL_FLOPS = {"prologue": 150, "iteration": 27}
 CGS_FLOPS = {"prologue": 125, "iteration": 29}
+# The Jacobi forms: scaled adds C' (9 square roots, 18 multiplies) and r' to
+# the prologue and the epilogue's x = x0 + s y and r'^2 / invd (6); PCG adds
+# rz to the prologue (2) and z = invd r and rz to each iteration (3).
+JACOBI_FLOPS = {"scaled": {"prologue": 184, "iteration": 27},
+                "pcg": {"prologue": 152, "iteration": 30}}
 # f32 planes each function must read once and write once: F (11), R0 (4),
 # Z0U (2, stencil only) and x0 in, x out.
-STENCIL_PLANES, CGS_PLANES = 19, 17
+# Jacobi adds invd.
+STENCIL_PLANES, CGS_PLANES, JACOBI_PLANES = 19, 17, 20
 # f32 planes one iteration of the kernels' design streams (the bound PERF.md
-# quotes per CG iteration): 9 C planes and 10 state planes read or written.
-ITERATION_PLANES = 19
+# quotes per CG iteration): 9 C planes and 10 state planes read or written;
+# the PCG form reads invd in both sweeps.
+ITERATION_PLANES = {"plain": 19, "scaled": 19, "pcg": 21}
 
 
 def bound(hw: int, lanes: int, iters: int, planes: int, flops: dict,
-          sf: int):
+          sf: int, stream_planes: int = ITERATION_PLANES["plain"],
+          per: int = None):
     """``(ms, "bytes" or "operations", stream_ms)`` per CG iteration: the
     least time the card could take for the function (inputs read once,
-    outputs written once; the operations of the iterations this run's data
-    needed), and the per-iteration streaming time of the kernels' design."""
+    outputs written once; the operations of the ``iters`` iterations this
+    run's data needed), spread over ``per`` iterations (the launched ones,
+    by default ``iters``), and the per-iteration streaming time of the
+    kernels' design."""
     t_bytes = planes * 4 * hw * lanes / HBM_BYTES_PER_S
     per_iter = flops["iteration"] + (2 if sf == 4 else 0)
     t_ops = hw * lanes * (flops["prologue"] + iters * per_iter) \
         / F32_FLOPS_PER_S
-    ms = 1e3 * max(t_bytes, t_ops) / iters
-    stream = 1e3 * ITERATION_PLANES * 4 * hw * lanes / HBM_BYTES_PER_S
+    ms = 1e3 * max(t_bytes, t_ops) / (per or iters)
+    stream = 1e3 * stream_planes * 4 * hw * lanes / HBM_BYTES_PER_S
     return ms, "bytes" if t_bytes >= t_ops else "operations", stream
 
 
@@ -158,14 +193,15 @@ def check_close(name, got, want, rtol, atol):
 
 
 def kernel_vs_plain(label, shapes):
-    """Phase 3. Returns the kernel's JSON entry (without launches)."""
+    """Phase 3 (and 3e). Returns the kernel's JSON entry (without
+    launches) per grid ``(h, w, sf)``."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
     dev = torch.device("cuda")
-    entry = None
+    entries = {}
     for (h, w, sf) in shapes:
         data, _ = lambertian_dataset(h, w, sf, n=8, c=3, seed=sf)
         prob, st, op = depth_operator(data, dev)
@@ -221,37 +257,41 @@ def kernel_vs_plain(label, shapes):
                                   cuda_ms(run_p, 2), cuda_ms(run_k, 3))
         ms_k = (t_k1 + t_k2) / 2 / (cap + 1)
         ms_p = (t_p1 + t_p2) / 2 / (cap + 1)
+        b_ms, b_by, s_ms = bound(h * w, 1, int(k), STENCIL_PLANES,
+                                 STENCIL_FLOPS, sf, per=cap + 1)
         print(f"[{label}] stencil_cg {h}x{w} sf={sf}: iterations {int(k)} "
               f"equal; max|dx| at 2/12/101 iterations {errs[2]:.3e} / "
               f"{errs[12]:.3e} / {errs[100]:.3e}; max|dC| {errs_c:.3e}; "
-              f"kernel {ms_k:.4f} ms/CG-iter, plain {ms_p:.4f} ms/CG-iter",
+              f"kernel {ms_k:.4f} ms/CG-iter, plain {ms_p:.4f} ms/CG-iter, "
+              f"bound {b_ms:.5f} ({b_by}), stream bound {s_ms:.4f}",
               flush=True)
-        if (h, w, sf) == (960, 1280, 2):
-            b_ms, b_by, s_ms = bound(h * w, 1, int(k), STENCIL_PLANES,
-                                     STENCIL_FLOPS, sf)
-            entry = {"name": "stencil_cg", "route": "cuda",
-                     "source": "srmeetsps_cuda_tpu_torch/csrc/stencil_cg.cu",
-                     "replaces": "srmeetsps_cuda_tpu/solve/pallas_cg_vmem.py:403",
-                     "max_abs_err": errs[2], "ms": ms_k, "plain_ms": ms_p,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "stream_bound_ms": s_ms, "library_ms": None,
-                     "unit": "per CG iteration, 960x1280 sf 2, 101 "
-                             "iterations"}
-    return entry
+        entries[h, w, sf] = {
+            "name": "stencil_cg", "route": "cuda",
+            "source": "srmeetsps_cuda_tpu_torch/csrc/stencil_cg.cu",
+            "replaces": "srmeetsps_cuda_tpu/solve/pallas_cg_vmem.py:"
+                        + ("708" if (h, w) == (1088, 1920) else "403"),
+            "max_abs_err": errs[2], "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": b_ms, "bound_by": b_by, "stream_bound_ms": s_ms,
+            "library_ms": None,
+            "unit": f"per CG iteration, {h}x{w} sf {sf}, {cap + 1} "
+                    "iterations launched"}
+    return entries
 
 
 def stacked_lanes(h, w, sf, seeds, device):
-    """Per-lane depth-CG inputs ``(x0, op, gm, ktw, z0t, z0u)`` of seeded
-    datasets, and the same stacked along a leading lane axis."""
+    """Per-lane depth-CG inputs ``(x0, op, gm, ktw, z0t, z0u, invd)`` of
+    seeded datasets, and the same stacked along a leading lane axis."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
+    from srmeetsps_cuda_tpu_torch.models import srps
 
     lanes = []
     for seed in seeds:
         data, _ = lambertian_dataset(h, w, sf, n=8, c=3, seed=seed)
         prob, st, op = depth_operator(data, device)
-        lanes.append((st.z, op, prob.gm, prob.ktw, prob.z0t, prob.z0u))
+        invd = 1.0 / srps.depth_diag(op, prob, sf, 1.0)
+        lanes.append((st.z, op, prob.gm, prob.ktw, prob.z0t, prob.z0u, invd))
     first = lanes[0]
     stacked = []
     for i, v in enumerate(first):
@@ -263,15 +303,16 @@ def stacked_lanes(h, w, sf, seeds, device):
     return lanes, stacked
 
 
-def stencil_lanes(label, entry):
-    """Phase 3b: B = 4 lanes of the stencil CG in one launch."""
+def stencil_lanes(label, entry, lanes, stacked):
+    """Phase 3b: B = 4 lanes of the stencil CG at 960 x 1280 sf 2 in one
+    launch."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
-    dev = torch.device("cuda")
-    h, w, sf, B = 960, 1280, 2, 4
-    lanes, stacked = stacked_lanes(h, w, sf, range(B), dev)
+    h, w, sf, B = 960, 1280, 2, len(lanes)
+    lanes = [ln[:6] for ln in lanes]
+    stacked = stacked[:6]
     for cap in (2, 12, 100):
         xb, kb, _, eb = sc.stencil_cg(*stacked, sf=sf, lam=1.0,
                                       max_iter=cap)
@@ -327,93 +368,168 @@ def rel_rms(got, want) -> float:
                  / want.double().square().mean().sqrt().clamp_min(1e-30))
 
 
-def cgs_vs_plain(label, shapes):
-    """Phase 3c. Returns the CGS kernel's JSON entry (without launches)."""
+def energy_excess(e, pe, const) -> tuple:
+    """``(|dE|, |dE| over phase 3's energy bound)`` of a tracked energy
+    ``e`` against the plain version's ``pe`` (``E = e_part + const``): the
+    bound is E_RTOL of E plus 1e-6 of the constant it cancels, and a ratio
+    above 1 fails."""
+    got, want = float(e) + const, float(pe) + const
+    gap = abs(got - want)
+    return gap, gap / (E_RTOL * abs(want) + 1e-6 * abs(const))
+
+
+def cg_vs_plain(label, grids, jacobi: bool):
+    """Phase 3c (``jacobi=False``: the CGS kernel) or 3d and 3e (the
+    Jacobi forms of the stencil CG, ``invd``) on ``grids``: ``(h, w, sf) ->
+    (lanes, stacked)``. Each lane from the main path's warm start and from
+    a cold start x0 = 0, at two thread-block shapes, against the plain
+    version: iteration counts, the update x - x0 and the reported residual
+    after 2 and 12 iterations (UPD_BOUND, RES_BOUND); under Jacobi also C'
+    bit-equal and the tracked energy from the warm start within phase 3's
+    bound at every cap. Then the stacked lanes bit for bit their solo
+    launches, and ms per CG iteration. Returns each grid's JSON entry
+    (without launches)."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
-    dev = torch.device("cuda")
-    entry = None
-    for (h, w, sf) in shapes:
-        lanes, stacked = stacked_lanes(h, w, sf, range(4), dev)
-        gaps = {}
+    if jacobi:
+        kernel, plain, counter = sc.stencil_cg, sc.stencil_cg_plain, \
+            "jacobi_launches"
+    else:
+        kernel, plain, counter = cg.cgs_cg, cg.cgs_cg_plain, "launches"
+    res = "residual" if jacobi else "gamma"
+
+    def call(fn, ln, x0=None, checks=False, **kw):
+        """``(x, iterations, residual, e_part, C)`` of ``fn`` on the inputs
+        ``ln`` (a lane or the stacked lanes), from ``x0`` where given;
+        e_part and C are None for CGS, C also without ``checks``."""
+        args = ((ln[0] if x0 is None else x0),) + tuple(ln[1:6 if jacobi
+                                                            else 5])
+        if not jacobi:
+            return tuple(fn(*args, **kw)) + (None, None)
+        out = tuple(fn(*args, invd=ln[6], planes=checks, **kw))
+        return out if checks else out + (None,)
+
+    entries = {}
+    for (h, w, sf), (lanes, stacked) in grids.items():
+        form = sc.jacobi_form(sf) if jacobi else "cgs"
+        name = f"stencil_cg jacobi {form}" if jacobi else "cgs_cg"
+        # PCG stops on <r, r> and the CGS on gamma, out of f32's reach at
+        # tol 1e-9 except where sf = 1 puts all of KT^T KT on the
+        # diagonal; the scaled form stops on <r', r'>, which can get there.
+        converges = form == "scaled" or (form == "cgs" and sf == 1)
+        gaps, energy = {}, (0.0, 0.0)
         for seed, ln in enumerate(lanes):
-            warm = ln[:5]
-            starts = {"warm": warm,
-                      "cold": (torch.zeros_like(warm[0]),) + warm[1:]}
-            for (start, args), cap, block in itertools.product(
-                    starts.items(), (2, 12, 100), ((256, 4), (32, 16))):
-                x0 = args[0]
-                before = cg.cgs_cg.launches
-                x, k, g = cg.cgs_cg(*args, sf=sf, lam=1.0, max_iter=cap,
-                                    block=block)
-                torch.cuda.synchronize()
-                if cg.cgs_cg.launches != before + 1:
-                    raise AssertionError("cgs_cg did not count its launch")
-                px, pk, pg = cg.cgs_cg_plain(*args, sf=sf, lam=1.0,
-                                             max_iter=cap)
-                want = cap + 1 if sf > 1 else int(pk)
-                where = (f"CGS {h}x{w} sf={sf} seed {seed} {start} cap {cap} "
-                         f"block {block}")
-                if int(k) != int(pk) or int(k) != want:
-                    raise AssertionError(
-                        f"{where}: iterations kernel {int(k)}, plain "
-                        f"{int(pk)}, expected {want}")
-                if not bool(torch.isfinite(x).all()):
-                    raise AssertionError(f"{where}: x is not finite")
-                if cap not in CGS_UPD[start]:
-                    continue
-                upd = rel_rms(x - x0, px - x0)
-                grel = abs(float(g) - float(pg)) / abs(float(pg))
-                old = gaps.get((start, cap), (0.0, 0.0))
-                gaps[start, cap] = (max(old[0], upd), max(old[1], grel))
-                if (seed, start, cap, block) == (0, "warm", 2, (256, 4)):
-                    max_dx = float((x - px).abs().max())
-                if upd > CGS_UPD[start][cap] or grel > CGS_GAMMA[start][cap]:
-                    raise AssertionError(
-                        f"{where}: relative RMS of the update {upd:.3e} "
-                        f"(bound {CGS_UPD[start][cap]}), relative gap of "
-                        f"gamma {grel:.3e} (bound {CGS_GAMMA[start][cap]})")
-        xs, ks, gs = cg.cgs_cg(*stacked[:5], sf=sf, lam=1.0, max_iter=12)
+            const = float(ln[1].const)
+            for start, cap in itertools.product(("warm", "cold"),
+                                                (2, 12, 100)):
+                x0 = ln[0] if start == "warm" else torch.zeros_like(ln[0])
+                px, pk, pr, pe, pC = call(plain, ln, x0, checks=True, sf=sf,
+                                          lam=1.0, max_iter=cap)
+                for block in ((256, 4), (32, 16)):
+                    where = (f"{name} {h}x{w} sf={sf} seed {seed} {start} "
+                             f"cap {cap} block {block}")
+                    before = getattr(kernel, counter)
+                    x, k, r1, e, C = call(kernel, ln, x0, checks=True, sf=sf,
+                                          lam=1.0, max_iter=cap, block=block)
+                    torch.cuda.synchronize()
+                    if getattr(kernel, counter) != before + 1:
+                        raise AssertionError(f"{where}: launch not counted")
+                    if jacobi and not torch.equal(C, pC):
+                        raise AssertionError(
+                            f"{where}: C' differs from the plain version's "
+                            f"by {float((C - pC).abs().max())}")
+                    want = int(pk) if converges else cap + 1
+                    if int(k) != int(pk) or int(k) != want:
+                        raise AssertionError(
+                            f"{where}: iterations kernel {int(k)}, plain "
+                            f"{int(pk)}, expected {want}")
+                    if not bool(torch.isfinite(x).all()):
+                        raise AssertionError(f"{where}: x is not finite")
+                    # From the cold start e_part begins at sum z0s^2 (~1e12
+                    # at 960 x 1280), whose f32 ulp swamps the energy; the
+                    # bound is phase 3's, for warm starts.
+                    if jacobi and start == "warm":
+                        de, ratio = energy_excess(e, pe, const)
+                        if ratio > 1:
+                            raise AssertionError(
+                                f"{where}: energy {float(e) + const} vs "
+                                f"plain {float(pe) + const} (const {const}), "
+                                f"{ratio:.3f} of the bound")
+                        energy = (max(energy[0], de), max(energy[1], ratio))
+                    if cap not in UPD_BOUND[start]:
+                        continue
+                    upd = rel_rms(x - x0, px - x0)
+                    gap = abs(float(r1) - float(pr)) / abs(float(pr))
+                    old = gaps.get((start, cap), (0.0, 0.0))
+                    gaps[start, cap] = (max(old[0], upd), max(old[1], gap))
+                    if (seed, start, cap, block) == (0, "warm", 2, (256, 4)):
+                        max_dx = float((x - px).abs().max())
+                    if upd > UPD_BOUND[start][cap] or gap > RES_BOUND[start][cap]:
+                        raise AssertionError(
+                            f"{where}: relative RMS of the update {upd:.3e} "
+                            f"(bound {UPD_BOUND[start][cap]}), relative gap "
+                            f"of {res} {gap:.3e} (bound "
+                            f"{RES_BOUND[start][cap]})")
+        xs, ks, rs, es, _ = call(kernel, stacked, sf=sf, lam=1.0, max_iter=12)
         for b, ln in enumerate(lanes):
-            x1, k1, g1 = cg.cgs_cg(*ln[:5], sf=sf, lam=1.0, max_iter=12)
+            x1, k1, r1, e1, _ = call(kernel, ln, sf=sf, lam=1.0, max_iter=12)
             if not (torch.equal(xs[b], x1) and int(ks[b]) == int(k1)
-                    and torch.equal(gs[b], g1)):
-                raise AssertionError(f"CGS lane {b} differs from its solo "
+                    and torch.equal(rs[b], r1)
+                    and (e1 is None or torch.equal(es[b], e1))):
+                raise AssertionError(f"{name} lane {b} differs from its solo "
                                      "launch")
         cap = 100
-        warm = lanes[0][:5]
-        run_k = lambda: cg.cgs_cg(*warm, sf=sf, lam=1.0, max_iter=cap)  # noqa: E731
-        run_p = lambda: cg.cgs_cg_plain(*warm, sf=sf, lam=1.0,  # noqa: E731
-                                        max_iter=cap)
+        run_k = lambda: call(kernel, lanes[0], sf=sf, lam=1.0,  # noqa: E731
+                             max_iter=cap)
+        run_p = lambda: call(plain, lanes[0], sf=sf, lam=1.0,  # noqa: E731
+                             max_iter=cap)
         t_k1, t_p1, t_p2, t_k2 = (cuda_ms(run_k, 3), cuda_ms(run_p, 2),
                                   cuda_ms(run_p, 2), cuda_ms(run_k, 3))
         n_it = int(run_k()[1])
         ms_k = (t_k1 + t_k2) / 2 / (cap + 1)
         ms_p = (t_p1 + t_p2) / 2 / (cap + 1)
-        print(f"[{label}] cgs_cg {h}x{w} sf={sf}: iterations equal "
-              f"({n_it} at cap 100); relative RMS of the update / relative "
-              f"gap of gamma, worst of 4 seeds and blocks 256x4 and 32x16: "
+        if jacobi:
+            b_ms, b_by, s_ms = bound(h * w, 1, n_it, JACOBI_PLANES,
+                                     JACOBI_FLOPS[form], sf,
+                                     ITERATION_PLANES[form], per=cap + 1)
+        else:
+            b_ms, b_by, s_ms = bound(h * w, 1, n_it, CGS_PLANES, CGS_FLOPS,
+                                     sf, per=cap + 1)
+        print(f"[{label}] {name} {h}x{w} sf={sf}: "
+              + ("C' bit-equal, " if jacobi else "")
+              + f"iterations equal ({n_it} of seed 0 at cap 100); relative "
+              f"RMS of the update / relative gap of {res}, worst of "
+              f"{len(lanes)} seeds and blocks 256x4 and 32x16: "
               + "; ".join(f"{st} cap {c} {u:.2e} / {g:.2e}"
                           for (st, c), (u, g) in gaps.items())
-              + f"; max|dx| warm cap 2 {max_dx:.3e}; B=4 lanes bit-equal to "
-              f"solo; kernel {ms_k:.4f} ms/CG-iter, plain {ms_p:.4f} "
-              "ms/CG-iter", flush=True)
-        if (h, w, sf) == (960, 1280, 2):
-            b_ms, b_by, s_ms = bound(h * w, 1, n_it, CGS_PLANES, CGS_FLOPS,
-                                     sf)
-            entry = {"name": "cgs_cg", "route": "cuda",
-                     "source": "srmeetsps_cuda_tpu_torch/csrc/cgs_cg.cu",
-                     "replaces": "srmeetsps_cuda_tpu/solve/pallas_cg_cgs.py:87",
-                     "max_abs_err": max_dx, "ms": ms_k, "plain_ms": ms_p,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "stream_bound_ms": s_ms, "library_ms": None,
-                     "update_rel_rms": gaps["warm", 2][0],
-                     "gamma_rel_gap": gaps["warm", 2][1],
-                     "unit": "per CG iteration, 960x1280 sf 2, 101 "
-                             "iterations"}
-    return entry
+              + (f"; warm-start energy max|dE| {energy[0]:.3e} "
+                 f"({energy[1]:.3f} of its bound)" if jacobi else "")
+              + f"; max|dx| warm cap 2 {max_dx:.3e}; B={len(lanes)} lanes "
+              f"bit-equal to solo; kernel {ms_k:.4f} ms/CG-iter, plain "
+              f"{ms_p:.4f} ms/CG-iter (per launched iteration), bound "
+              f"{b_ms:.5f} ({b_by}), stream bound {s_ms:.4f}", flush=True)
+        if jacobi:
+            source, replaces = "stencil_cg.cu", "pallas_cg_vmem.py:" + (
+                "708" if (h, w) == (1088, 1920) else "403")
+        else:
+            source, replaces = "cgs_cg.cu", "pallas_cg_cgs.py:87"
+        entries[h, w, sf] = {
+            "name": name, "route": "cuda",
+            "source": "srmeetsps_cuda_tpu_torch/csrc/" + source,
+            "replaces": "srmeetsps_cuda_tpu/solve/" + replaces,
+            "max_abs_err": max_dx, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": b_ms, "bound_by": b_by, "stream_bound_ms": s_ms,
+            "library_ms": None, "update_rel_rms": gaps["warm", 2][0],
+            f"{res}_rel_gap": gaps["warm", 2][1], "cg_iterations": n_it,
+            "unit": f"per launched CG iteration, {h}x{w} sf {sf}, "
+                    f"{cap + 1} launched, {n_it} run"}
+        if jacobi:
+            entries[h, w, sf].update(energy_abs_gap=energy[0],
+                                     energy_gap_of_bound=energy[1])
+    return entries
 
 
 def stop_rule_held(energies, tol, max_iterations) -> bool:
@@ -458,35 +574,59 @@ def run_cli(argv, tmp):
 
 
 def kernel_counters():
+    """The launch counts each run is read by: name -> (object, attribute).
+    ``stencil_cg`` counts every run of the stencil CG kernels, ``stencil_cg
+    jacobi`` those in a Jacobi form."""
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
-    return {"stencil_cg": sc.stencil_cg, "cgs_cg": cg.cgs_cg}
+    return {"stencil_cg": (sc.stencil_cg, "launches"),
+            "stencil_cg jacobi": (sc.stencil_cg, "jacobi_launches"),
+            "cgs_cg": (cg.cgs_cg, "launches")}
 
 
-def main_path(label, tmp, path, data, z_true, cli_extra=(),
-              kernel="stencil_cg"):
-    """Phase 4 (and 4c with ``--cg-variant cgs``) through ``cli.main``.
-    Returns the outer iterations, energies, solve seconds and the launches
-    of ``kernel`` counted in the run."""
+def reset_counts():
+    for obj, attr in kernel_counters().values():
+        setattr(obj, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(obj, attr)
+            for k, (obj, attr) in kernel_counters().items()}
+
+
+def expected_counts(n: int, cli_extra) -> dict:
+    """The counts of ``n`` depth solves of a run with ``cli_extra``: Jacobi
+    runs the stencil CG in a Jacobi form, whatever the --cg-variant."""
+    jacobi = "--jacobi" in cli_extra
+    cgs = "cgs" in cli_extra and not jacobi
+    return {"stencil_cg": 0 if cgs else n,
+            "stencil_cg jacobi": n if jacobi else 0,
+            "cgs_cg": n if cgs else 0}
+
+
+def main_path(label, tmp, path, data, z_true, cli_extra=()):
+    """Phase 4 (4c with ``--cg-variant cgs``, 4e and 4g with ``--jacobi``)
+    through ``cli.main``, the launch counts set to 0 just before and read
+    just after. Returns the outer iterations, energies, CG iterations,
+    solve seconds and the launch counts of the run."""
     import numpy as np
 
     from srmeetsps_cuda_tpu_torch.ops.grid import masked_scatter_colmajor
 
     h, w = data.mask.shape
     n, sf = data.I.shape[0], data.sf
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
     dump = tempfile.mkdtemp(dir=tmp)
+    reset_counts()
     recs, wall = run_cli(["--dsloc", path, "--dump", "--dump-format", "npz",
                           "--dump-dir", dump, *cli_extra], tmp)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = read_counts()
     final = np.load(os.path.join(dump, "state_final.npz"))
     z = masked_scatter_colmajor(final["z"], data.mask)
     iters = [r for r in recs if "iteration" in r]
     summary = recs[-1]
     energies = [r["energy"] for r in iters]
+    cg_iters = [r["cg_iterations"] for r in iters]
     n_it = summary["iterations"]
     if len(iters) != n_it or not all(map(math.isfinite, energies)):
         raise AssertionError(f"energies not finite or incomplete: {iters}")
@@ -495,22 +635,24 @@ def main_path(label, tmp, path, data, z_true, cli_extra=(),
     m = data.mask != 0
     if final["z"].shape != (int(m.sum()),) or not np.all(np.isfinite(z)):
         raise AssertionError("final depth is not finite / of the mask's size")
-    others = {k: v for k, v in launches.items() if k != kernel}
-    if launches[kernel] != n_it or any(others.values()):
+    if launches != expected_counts(n_it, cli_extra):
         raise AssertionError(f"kernel runs {launches} for {n_it} outer "
-                             f"iterations through {kernel}")
-    if any(r["cg_iterations"] != 101 for r in iters):
-        raise AssertionError(f"CG iterations not at the cap: {iters}")
+                             f"iterations with {cli_extra}")
+    # The scaled Jacobi form stops on <r', r'>, which f32 can bring under
+    # tol^2 = 1e-18; every other form runs to the cap.
+    scaled = "--jacobi" in cli_extra and sf <= 2
+    if not all(c == 101 or (scaled and 0 < c < 101) for c in cg_iters):
+        raise AssertionError(f"CG iterations {cg_iters} off the cap")
     rmse = float(np.sqrt(np.mean((z[m] - z_true[m]) ** 2)))
     dt = summary["total_seconds"]
     print(f"[{label}] main path {' '.join(cli_extra)} {h}x{w} n={n} sf={sf}: "
           f"{n_it} outer iterations, final energy {energies[-1]:.4f}, solve "
           f"{dt:.4f} s ({1e3 * dt / n_it:.3f} ms/outer-iter), CLI wall "
-          f"{wall:.3f} s, {kernel} launches {launches[kernel]}, depth RMSE "
-          f"vs truth {rmse:.4f}", flush=True)
+          f"{wall:.3f} s, launches {launches}, CG iterations {cg_iters}, "
+          f"depth RMSE vs truth {rmse:.4f}", flush=True)
     print(f"[{label}] energy trace {energies}", flush=True)
     return {"iterations": n_it, "energies": energies, "seconds": dt,
-            "launches": launches[kernel]}
+            "launches": launches, "rmse": rmse}
 
 
 def lane_traces(recs):
@@ -556,27 +698,22 @@ def energy_bound(first, const):
     return E_RTOL * abs(first) + 1e-6 * abs(const)
 
 
-def batched_path(label, tmp, paths, solo, padded, grid, variant="pipe"):
-    """Phase 4b: the comma --dsloc in both modes with ``--cg-variant
-    variant``. ``solo[path]`` is the single CLI run of a file in the same
-    variant, where there is one; ``padded`` is the file that is padded to
-    ``grid``. Returns the stream lanes and the lockstep launches."""
+def batched_path(label, tmp, paths, solo, padded, grid, cli_extra=()):
+    """Phase 4b (4c, 4f): the comma --dsloc in both modes with
+    ``cli_extra``. ``solo[path]`` is the single CLI run of a file with the
+    same options, where there is one; ``padded`` is the file that is padded
+    to ``grid``. Returns the stream lanes and the lockstep launch counts."""
     lst = ",".join(paths)
-    kernel = "cgs_cg" if variant == "cgs" else "stencil_cg"
-    counters = kernel_counters()
     runs = {}
     for mode in ("stream", "lockstep"):
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts()
         recs, wall = run_cli(["--dsloc", lst, "--batch-mode", mode,
-                              "--cg-variant", variant], tmp)
-        launches = {k: fn.launches for k, fn in counters.items()}
+                              *cli_extra], tmp)
+        launches = read_counts()
         lanes = lane_traces(recs)
-        runs[mode] = (lanes, recs[-1]["solve_seconds"], launches[kernel], wall)
+        runs[mode] = (lanes, recs[-1]["solve_seconds"], launches, wall)
         if len(lanes) != len(paths) or recs[-1]["mode"] != mode:
             raise AssertionError(f"{mode}: {len(lanes)} lanes in {recs[-1]}")
-        if any(n for k, n in launches.items() if k != kernel):
-            raise AssertionError(f"{mode} {variant}: launches {launches}")
     stream, t_stream, n_stream, w_stream = runs["stream"]
     lock, t_lock, n_lock, w_lock = runs["lockstep"]
     for b, path in enumerate(paths):
@@ -601,30 +738,31 @@ def batched_path(label, tmp, paths, solo, padded, grid, variant="pipe"):
                                  f"{len(want)} outer iterations")
         check_close(f"padded lane vs native solo (const {const})",
                     stream[b][:k], want[:k], 0, energy_bound(want[0], const))
-    if n_stream != sum(map(len, stream)):
-        raise AssertionError(f"stream: {n_stream} launches for "
+    if n_stream != expected_counts(sum(map(len, stream)), cli_extra):
+        raise AssertionError(f"stream: launches {n_stream} for "
                              f"{list(map(len, stream))} iterations")
     if lock != stream:
         raise AssertionError(f"lockstep lanes {lock} differ from stream "
                              f"lanes {stream}")
-    if n_lock != max(map(len, lock)):
-        raise AssertionError(f"lockstep: {n_lock} lane-batched launches for "
+    if n_lock != expected_counts(max(map(len, lock)), cli_extra):
+        raise AssertionError(f"lockstep: launches {n_lock} for "
                              f"{max(map(len, lock))} outer iterations")
     B = len(paths)
-    print(f"[{label}] batched CLI --cg-variant {variant}, {B} lanes (one "
-          f"padded to {grid[0]}x{grid[1]}): stream lanes equal their solo "
-          f"solves, lockstep equals stream; stream {t_stream:.4f} s "
-          f"({B / t_stream:.2f} solves/s, {n_stream} {kernel} launches), "
-          f"lockstep {t_lock:.4f} s ({B / t_lock:.2f} solves/s, {n_lock} "
-          f"lane-batched launches for {max(map(len, lock))} outer "
+    print(f"[{label}] batched CLI {' '.join(cli_extra) or '(standard CG)'}, "
+          f"{B} lanes (one padded to {grid[0]}x{grid[1]}): stream lanes "
+          f"equal their solo solves, lockstep equals stream; stream "
+          f"{t_stream:.4f} s ({B / t_stream:.2f} solves/s, launches "
+          f"{n_stream}), lockstep {t_lock:.4f} s ({B / t_lock:.2f} solves/s, "
+          f"lane-batched launches {n_lock} for {max(map(len, lock))} outer "
           f"iterations); CLI wall {w_stream:.3f} / {w_lock:.3f} s",
           flush=True)
     return stream, n_lock
 
 
-def serve_path(label, requests, answers):
-    """Phase 4d: ``--serve`` with ``requests`` on stdin; each JSON answer
-    must carry the iterations and final energy in ``answers``."""
+def serve_path(label, requests, answers, cli_extra=()):
+    """Phase 4d: ``--serve`` with ``cli_extra`` and ``requests`` on stdin;
+    each JSON answer must carry the iterations and final energy in
+    ``answers``."""
     from srmeetsps_cuda_tpu_torch import cli
 
     buf = io.StringIO()
@@ -632,7 +770,7 @@ def serve_path(label, requests, answers):
     sys.stdin = io.StringIO("".join(f"{r}\n" for r in requests) + "quit\n")
     try:
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(["--dstype", "matlab", "--serve"])
+            rc = cli.main(["--dstype", "matlab", "--serve", *cli_extra])
     finally:
         sys.stdin = stdin
     lines = [json.loads(line) for line in buf.getvalue().splitlines()
@@ -647,12 +785,12 @@ def serve_path(label, requests, answers):
                 or got.get("final_energy") != energy):
             raise AssertionError(f"serve answered {got}, expected "
                                  f"iterations {n_it}, final energy {energy}")
-    print(f"[{label}] serve: {len(requests)} requests answered as the CLI "
-          "solved them; solve s " + ", ".join(
+    print(f"[{label}] serve {' '.join(cli_extra)}: {len(requests)} requests "
+          "answered as the CLI solved them; solve s " + ", ".join(
               f"{a['solve_seconds']}" for a in lines[1:]), flush=True)
 
 
-def small_input_vs_cpu(label):
+def small_input_vs_cpu(label, jacobi=False):
     """The whole solve on a small input, on the card and on the CPU."""
     import torch
 
@@ -661,7 +799,7 @@ def small_input_vs_cpu(label):
     from srmeetsps_cuda_tpu_torch.runtime.solver import solve
 
     data, _ = lambertian_dataset(48, 64, 2, n=6, c=3, seed=3)
-    cfg = SolverConfig()
+    cfg = SolverConfig(jacobi_preconditioner=jacobi)
     runs = {}
     for dev in ("cuda", "cpu"):
         _, metrics = solve(data, cfg, RuntimeConfig(fused_outer_loop=True),
@@ -674,7 +812,8 @@ def small_input_vs_cpu(label):
     # scale of the first one.
     check_close("small-input energy trace", runs["cuda"], runs["cpu"],
                 E_RTOL, E_RTOL * abs(runs["cpu"][0]))
-    print(f"[{label}] small input 48x64: {len(runs['cuda'])} outer iterations "
+    print(f"[{label}] small input 48x64{' --jacobi' if jacobi else ''}: "
+          f"{len(runs['cuda'])} outer iterations "
           f"on the card and the CPU, energies {runs['cuda']} vs "
           f"{runs['cpu']}", flush=True)
 
@@ -709,15 +848,30 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s (compiled: {fresh or 'none'})",
           flush=True)
 
+    dev = torch.device("cuda")
     grids = [(960, 1280, 2), (240, 320, 1), (480, 640, 4)]
-    entry = kernel_vs_plain(label, grids)
-    stencil_lanes(label, entry)
-    cgs_entry = cgs_vs_plain(label, grids)
+    shared = {g: stacked_lanes(*g, range(4), dev)
+              for g in grids + [(960, 1280, 4)]}
+    entry = kernel_vs_plain(label, grids)[960, 1280, 2]
+    stencil_lanes(label, entry, *shared[960, 1280, 2])
+    cgs_entry = cg_vs_plain(label, {g: shared[g] for g in grids},
+                            jacobi=False)[960, 1280, 2]
+    jac = cg_vs_plain(label, shared, jacobi=True)
+    scaled_entry, pcg_entry = jac[960, 1280, 2], jac[960, 1280, 4]
+    del shared
+    big = (1088, 1920, 2)
+    big_entry = kernel_vs_plain(label, [big])[big]
+    big_entry["name"] = "stencil_cg 1088x1920"
+    big_jac = cg_vs_plain(label, {big: stacked_lanes(*big, range(2), dev)},
+                          jacobi=True)[big]
+    big_entry["jacobi"] = {k: big_jac[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "cg_iterations",
+        "energy_abs_gap", "energy_gap_of_bound")}
 
     with tempfile.TemporaryDirectory() as tmp:
         a, a_data, a_true = write_dataset(tmp, 960, 1280, seed=0)
         main = main_path(label, tmp, a, a_data, a_true)
-        entry["launches"] = main["launches"]
+        entry["launches"] = main["launches"]["stencil_cg"]
         small_input_vs_cpu(label)
 
         b, b_data, b_true = write_dataset(tmp, 944, 1264, seed=1)
@@ -725,13 +879,12 @@ def main() -> int:
         solo = {a: main, b: main_path(label, tmp, b, b_data, b_true),
                 c: main_path(label, tmp, c, c_data, c_true)}
         lanes, grid = [a, b, c, a], (960, 1280)
-        stream, entry["batched"]["launches"] = batched_path(
-            label, tmp, lanes, solo, b, grid)
+        stream, n_lock = batched_path(label, tmp, lanes, solo, b, grid)
+        entry["batched"]["launches"] = n_lock["stencil_cg"]
 
         cgs = main_path(label, tmp, a, a_data, a_true,
-                        cli_extra=("--cg-variant", "cgs"),
-                        kernel="cgs_cg")
-        cgs_entry["launches"] = cgs["launches"]
+                        cli_extra=("--cg-variant", "cgs"))
+        cgs_entry["launches"] = cgs["launches"]["cgs_cg"]
         trace, const = solo_trace(a)
         if trace != main["energies"]:
             raise AssertionError("the runtime API's solve differs from the "
@@ -750,15 +903,60 @@ def main() -> int:
               f"{max(abs(x - y) for x, y in zip(alt, std)):.4f}): {alt} vs "
               f"{std}", flush=True)
         _, n_lock = batched_path(label, tmp, lanes, {a: cgs}, b, grid,
-                                 variant="cgs")
-        cgs_entry["batched"] = {"lanes": len(lanes), "launches": n_lock}
+                                 cli_extra=("--cg-variant", "cgs"))
+        cgs_entry["batched"] = {"lanes": len(lanes),
+                                "launches": n_lock["cgs_cg"]}
+
+        # 4e: --jacobi, scaled at sf 2 and PCG at sf 4.
+        jac_a = main_path(label, tmp, a, a_data, a_true,
+                          cli_extra=("--jacobi",))
+        scaled_entry["launches"] = jac_a["launches"]["stencil_cg jacobi"]
+        d, d_data, d_true = write_dataset(tmp, 960, 1280, seed=4, sf=4)
+        jac_d = main_path(label, tmp, d, d_data, d_true,
+                          cli_extra=("--jacobi",))
+        pcg_entry["launches"] = jac_d["launches"]["stencil_cg jacobi"]
+        os.remove(d)
+        per_it = [1e3 * r["seconds"] / r["iterations"] for r in (jac_a, main)]
+        print(f"[{label}] --jacobi vs standard at 960x1280 sf=2: "
+              f"{per_it[0]:.3f} vs {per_it[1]:.3f} ms/outer-iter, "
+              f"{jac_a['iterations']} vs {main['iterations']} outer "
+              f"iterations, depth RMSE vs truth {jac_a['rmse']:.4f} vs "
+              f"{main['rmse']:.4f}", flush=True)
+        small_input_vs_cpu(label, jacobi=True)
+
+        # 4f: the batched run with --jacobi, and with --cg-variant cgs too.
+        _, n_lock = batched_path(label, tmp, lanes, {a: jac_a}, b, grid,
+                                 cli_extra=("--jacobi",))
+        scaled_entry["batched"] = {"lanes": len(lanes),
+                                   "launches": n_lock["stencil_cg jacobi"]}
+        batched_path(label, tmp, lanes, {}, b, grid,
+                     cli_extra=("--jacobi", "--cg-variant", "cgs"))
 
         serve_path(label, [a, b, ",".join(lanes)], [
             (main["iterations"], main["energies"][-1]),
             (solo[b]["iterations"], solo[b]["energies"][-1]),
             ([len(t) for t in stream], [t[-1] for t in stream])])
+        serve_path(label, [a], [(jac_a["iterations"], jac_a["energies"][-1])],
+                   cli_extra=("--jacobi",))
 
-    print(json.dumps({"kernels": [entry, cgs_entry]}))
+        # 4g: BASELINE.md configuration 5, 1088 x 1920, n = 20, c = 3.
+        for path in (a, b, c):
+            os.remove(path)
+        e, e_data, e_true = write_dataset(tmp, 1088, 1920, seed=5)
+        big_std = main_path(label, tmp, e, e_data, e_true)
+        big_entry["launches"] = big_std["launches"]["stencil_cg"]
+        big_jac_run = main_path(label, tmp, e, e_data, e_true,
+                                cli_extra=("--jacobi",))
+        big_entry["jacobi"]["launches"] = \
+            big_jac_run["launches"]["stencil_cg jacobi"]
+        per_it = [1e3 * r["seconds"] / r["iterations"]
+                  for r in (big_std, big_jac_run, main)]
+        print(f"[{label}] 1088x1920 n=20: {per_it[0]:.3f} ms/outer-iter "
+              f"standard, {per_it[1]:.3f} --jacobi, against "
+              f"{per_it[2]:.3f} standard at 960x1280", flush=True)
+
+    print(json.dumps({"kernels": [entry, cgs_entry, scaled_entry, pcg_entry,
+                                  big_entry]}))
     print(label)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

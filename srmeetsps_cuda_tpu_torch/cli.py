@@ -51,7 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cg-max-iter", type=int, default=100)
     p.add_argument("--lambda", dest="lam", type=float, default=1.0)
     p.add_argument("--jacobi", action="store_true",
-                   help="Jacobi-preconditioned depth CG (CPU only so far)")
+                   help="Jacobi-preconditioned depth CG, faster: plain CG "
+                        "on the diagonally scaled system at sf <= 2, "
+                        "in-sweep PCG at sf = 4, through the stencil CG "
+                        "kernel; with --cg-variant cgs the same kernel runs "
+                        "(CGS has no Jacobi form) and the energy is "
+                        "evaluated at its result")
     p.add_argument("--fast", action="store_true",
                    help="fast preset: plain CG at cap 40 (the reference's "
                         "recurrence, a lower cap); an explicit "
@@ -123,7 +128,6 @@ def main(argv=None) -> int:
         ("--show", args.show),
         ("--dump-operators", args.dump_operators),
         ("--image-dtype bfloat16", args.image_dtype != "float32"),
-        ("--jacobi on CUDA", args.jacobi and not args.cpu),
     ]
     for what, asked in unported:
         if asked:

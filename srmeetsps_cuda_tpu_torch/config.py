@@ -12,8 +12,8 @@ values as ``srmeetsps_cuda_tpu.config`` (a test holds the two together):
 The TPU-only switches of the JAX config (Pallas routing, VMEM residency)
 have no counterpart: on a CUDA device the depth CG always runs a
 hand-written kernel (the stencil CG with the energy tracked inside it, the
-JAX default kernel_energy, or the Chronopoulos-Gear CG), on the CPU its
-plain PyTorch version. The bf16 image stack is not ported yet.
+JAX default kernel_energy, plain or Jacobi-preconditioned, or the
+Chronopoulos-Gear CG), on the CPU its plain PyTorch version. The bf16 image stack is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ class SolverConfig:
     bilateral_sigma_space: float = 2.0
     # None = 2 * inpaint_radius**2 diffusion sweeps (512 at radius 16).
     inpaint_iters: Optional[int] = None
-    # Jacobi-preconditioned depth CG: the plain CPU path only so far.
+    # Jacobi-preconditioned depth CG (stencil_cg with invd = 1 / diag M):
+    # scaled at sf <= 2, in-sweep PCG at sf = 4, on every path and variant.
     jacobi_preconditioner: bool = False
     # "pipe" = standard CG (csrc/stencil_cg.cu); "cgs" = Chronopoulos-Gear
     # CG, one sweep and one reduction per iteration (csrc/cgs_cg.cu).

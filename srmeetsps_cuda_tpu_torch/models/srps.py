@@ -24,7 +24,6 @@ run in full float32 (``device.set_precision``), as the JAX package's
 from __future__ import annotations
 
 import math
-from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -35,7 +34,6 @@ from ..ops import gradients as gradops
 from ..ops import grid as gridops
 from ..ops.gradients import GradientMasks
 from ..ops.normals import normals_from_depth
-from ..solve.cg import conjugate_gradient
 from ..solve.cgs_cg import cgs_cg
 from ..solve.stencil_cg import (depth_rhs_fields, energy_planes, make_ktw,
                                 stencil_cg)
@@ -408,44 +406,59 @@ def depth_energy(z_new, op: DepthOperator, prob: SRPSProblem, sf: int,
     return torch.sum(r1 * r1) + lam * e_data
 
 
-def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
-                   cfg: SolverConfig, block=(256, 4)):
-    """Warm-started CG depth solve and its energy (devicecalls.cu:636-786).
+def depth_cg(z, op: DepthOperator, prob: SRPSProblem, sf: int,
+             cfg: SolverConfig, block=(256, 4), lanes=None):
+    """The warm-started depth CG from ``z`` on ``op`` and its energy, for
+    one problem, or for B lane-stacked ones in one launch with ``lanes``
+    their per-lane ``(op, prob)`` pairs.
 
     Plain CG runs :func:`stencil_cg` — the CUDA kernel for a CUDA ``z``,
     its plain version for a CPU one — with the energy tracked inside the
     CG; ``cg_variant="cgs"`` runs :func:`cgs_cg` the same way and evaluates
     the energy at its result (srps.py:615-617 of the JAX package). Jacobi
-    preconditioning, of either variant, runs the generic PCG on the CPU and
-    is not ported to CUDA yet. Returns ``(z_new, energy, cg_iterations)``
-    as device tensors."""
+    preconditioning passes ``invd = 1 / diag(M)`` to :func:`stencil_cg`
+    (srps.py:543-548), in its scaled form at sf <= 2 and its in-sweep PCG
+    form at sf = 4. The CGS recurrence has no Jacobi form: with
+    ``cg_variant="cgs"`` Jacobi runs the same preconditioned stencil CG and
+    evaluates the energy at its result, where the JAX package runs its jnp
+    PCG (srps.py:595-617). Returns ``(z_new, energy, cg_iterations)`` as
+    device tensors, the scalars one per lane."""
     if cfg.cg_variant not in ("pipe", "cgs"):
         raise ValueError(f"unknown cg_variant {cfg.cg_variant!r}")
     lam = cfg.lam
-    op = build_depth_operator(prob, mom, rho, dz, lam)
-    if cfg.jacobi_preconditioner:
-        if z.device.type != "cpu":
-            raise NotImplementedError(
-                "the Jacobi-preconditioned depth CG is not yet ported to "
-                "CUDA; see ROADMAP.md Queue 2, kernel 1 (scaled Jacobi)")
-        matvec = partial(depth_matvec, op=op, prob=prob, sf=sf, lam=lam)
-        diag = depth_diag(op, prob, sf, lam)
-        res = conjugate_gradient(
-            matvec, depth_rhs(op, prob, sf, lam) - matvec(z), z,
-            tol=cfg.cg_tol, max_iter=cfg.cg_max_iter,
-            precond=lambda r: r / diag)
-        z_new = res.x * prob.mask
-        return z_new, depth_energy(z_new, op, prob, sf, lam), res.iterations
-    if cfg.cg_variant == "cgs":
+
+    def each(fn, t):
+        """``fn(op, prob, t)`` of the problem, or stacked over the lanes."""
+        if lanes is None:
+            return fn(op, prob, t)
+        return torch.stack([fn(o, p, t[b]) for b, (o, p) in enumerate(lanes)])
+
+    if cfg.cg_variant == "cgs" and not cfg.jacobi_preconditioner:
         x, iters, _ = cgs_cg(z, op, prob.gm, prob.ktw, prob.z0t, sf=sf,
                              lam=lam, tol=cfg.cg_tol,
                              max_iter=cfg.cg_max_iter, block=block)
-        z_new = x * prob.mask
-        return z_new, depth_energy(z_new, op, prob, sf, lam), iters
-    x, iters, _, e_part = stencil_cg(
-        z, op, prob.gm, prob.ktw, prob.z0t, prob.z0u, sf=sf, lam=lam,
-        tol=cfg.cg_tol, max_iter=cfg.cg_max_iter, block=block)
-    return x * prob.mask, e_part + lam * op.const, iters
+    else:
+        invd = None
+        if cfg.jacobi_preconditioner:
+            invd = 1.0 / each(lambda o, p, _: depth_diag(o, p, sf, lam), z)
+        x, iters, _, e_part = stencil_cg(
+            z, op, prob.gm, prob.ktw, prob.z0t, prob.z0u, sf=sf, lam=lam,
+            tol=cfg.cg_tol, max_iter=cfg.cg_max_iter, block=block, invd=invd)
+    z_new = x * prob.mask
+    if cfg.cg_variant == "cgs":
+        energy = each(lambda o, p, zb: depth_energy(zb, o, p, sf, lam), z_new)
+    else:
+        energy = e_part + lam * op.const
+    return z_new, energy, iters
+
+
+def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
+                   cfg: SolverConfig, block=(256, 4)):
+    """Warm-started CG depth solve and its energy (devicecalls.cu:636-786):
+    the depth operator, then :func:`depth_cg`. Returns ``(z_new, energy,
+    cg_iterations)`` as device tensors."""
+    op = build_depth_operator(prob, mom, rho, dz, cfg.lam)
+    return depth_cg(z, op, prob, sf, cfg, block)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ configuration 4). Two execution forms:
   stream, so each lane is bit for bit its solo solve.
 * **lockstep** (:func:`solve_batched`): all lanes advance one outer
   iteration together, with the depth CG of every lane in **one**
-  lane-batched launch per outer iteration (``stencil_cg``, or
-  ``cgs_cg`` for the Chronopoulos-Gear variant). Lanes that have stopped
+  lane-batched launch per outer iteration (``stencil_cg``, with a stacked
+  ``invd`` under Jacobi, or ``cgs_cg`` for the Chronopoulos-Gear
+  variant). Lanes that have stopped
   are frozen with ``torch.where`` and the loop runs until every lane has
   stopped; the energy trace has shape (B, max_iterations + 2).
 
@@ -35,8 +36,6 @@ import torch
 from ..config import SolverConfig
 from ..models import srps
 from ..ops.gradients import GradientMasks
-from ..solve.cgs_cg import cgs_cg
-from ..solve.stencil_cg import stencil_cg
 
 
 def _stack(values):
@@ -120,7 +119,7 @@ def solve_batch(states, probs, sf: int, cfg: SolverConfig, mode: str = "auto",
 def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
                         lanes: list, sf: int, cfg: SolverConfig, block):
     """One outer iteration of every lane; the depth CG of all lanes is one
-    launch."""
+    launch (``srps.depth_cg`` on the stacked operator)."""
     lam = cfg.lam
     ss, moms, rhos, ops = [], [], [], []
     for b, pb in enumerate(lanes):
@@ -132,30 +131,9 @@ def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
         moms.append(mom)
         rhos.append(rho)
         ops.append(srps.build_depth_operator(pb, mom, rho, states.dz[b], lam))
-    if cfg.jacobi_preconditioner:
-        # No lane-batched preconditioned kernel: the generic PCG per lane
-        # (CPU only, as in the single solve).
-        outs = [srps.estimate_depth(pb, moms[b], rhos[b], states.dz[b],
-                                    states.z[b], sf, cfg, block)
-                for b, pb in enumerate(lanes)]
-        z, energy, iters = (torch.stack(t) for t in zip(*outs))
-    else:
-        op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
-        if cfg.cg_variant == "cgs":
-            x, iters, _ = cgs_cg(states.z, op, probs.gm, probs.ktw, probs.z0t,
-                                 sf=sf, lam=lam, tol=cfg.cg_tol,
-                                 max_iter=cfg.cg_max_iter, block=block)
-            z = x * probs.mask
-            energy = torch.stack([
-                srps.depth_energy(z[b], ops[b], pb, sf, lam)
-                for b, pb in enumerate(lanes)])
-        else:
-            x, iters, _, e_part = stencil_cg(
-                states.z, op, probs.gm, probs.ktw, probs.z0t, probs.z0u,
-                sf=sf, lam=lam, tol=cfg.cg_tol, max_iter=cfg.cg_max_iter,
-                block=block)
-            z = x * probs.mask
-            energy = e_part + lam * op.const
+    op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
+    z, energy, iters = srps.depth_cg(states.z, op, probs, sf, cfg, block,
+                                     lanes=list(zip(ops, lanes)))
     N, dz = (torch.stack(t) for t in zip(*(
         srps.depth_normals(z[b], pb) for b, pb in enumerate(lanes))))
     return srps.SRPSState(

@@ -12,7 +12,9 @@ product. Semantics match the reference:
   - ``k <= max_iter`` with post-increment admits one extra iteration, so a
     cap of 100 runs 101 iterations.
 
-The diagonally preconditioned variant serves ``--jacobi`` on the CPU.
+No solve path of the port runs it (the depth CG, Jacobi included, is
+``stencil_cg``); it is the generic reference the tests hold that CG to, as
+the JAX package's jnp PCG is.
 """
 
 from __future__ import annotations

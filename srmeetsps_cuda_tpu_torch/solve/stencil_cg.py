@@ -2,9 +2,12 @@
 
 Port of the TPU kernel ``srmeetsps_cuda_tpu/solve/pallas_cg_vmem.py::
 _kernel_vmem_stencil`` (reached through ``cg_pallas_vmem_fromop[_batched]``,
-srps.py:574-578, batched.py:165-173), in its main-path form: plain CG,
-energy tracked, B >= 1 lanes, sf in {1, 2, 4}. Two versions of one
-function live here:
+srps.py:541-578, batched.py:155-173) in all its forms: plain CG or Jacobi
+PCG, energy tracked, B >= 1 lanes, sf in {1, 2, 4}. It also covers
+``_kernel_vmem_hybrid_stencil`` (pallas_cg_vmem.py:708), the same CG for
+1080p-class grids whose C planes the TPU re-streams from HBM: the H100 has
+no residency limit, so nothing here depends on the grid size. Two versions
+of one function live here:
 
 * :func:`stencil_cg_plain` — plain PyTorch, on ``(h, w)`` planes or on
   ``(B, h, w)`` lanes. The CPU path and the tests use it; on a CUDA device
@@ -13,7 +16,8 @@ function live here:
   ``csrc/stencil_cg.cu``: one problem (h, w) as the B = 1 case of a lane
   batch (B, h, w), all lanes in one launch. A CPU tensor takes the plain
   version; a CUDA tensor launches the kernels or raises.
-  ``stencil_cg.launches`` counts the kernel runs.
+  ``stencil_cg.launches`` counts the kernel runs, and
+  ``stencil_cg.jacobi_launches`` those of them in a Jacobi form.
 
 Both compute, per lane, from the warm start ``x0``:
 
@@ -26,10 +30,29 @@ Both compute, per lane, from the warm start ``x0``:
 * the energy at ``x0`` in residual form, then the CG identity
   ``E -= alpha * r1`` per iteration (the caller adds ``lam * sum B^2``);
 * the reference's CG: beta = 0 at k = 1, guarded divisions, stop when
-  ``r1 <= tol^2`` or after ``max_iter + 1`` iterations.
+  the stop dot is ``<= tol^2`` or after ``max_iter + 1`` iterations.
+
+With ``invd = 1 / diag(M)`` the CG is Jacobi-preconditioned, in one of the
+TPU kernel's two forms (:func:`jacobi_form`):
+
+* ``"scaled"`` (sf <= 2, the default there): plain CG on ``S M S`` with
+  ``S = diag(sqrt(invd))``. M x0 uses the unscaled planes; then
+  ``C'_d[i] = (s_i C_d[i]) s_{i+d}``, ``r' = s (rhs - M x0)``, the
+  correction y iterates from 0 and ``x = x0 + s y``. ``<r', r'>`` drives
+  the stop test and the energy; the reported residual is
+  ``sum r'^2 / invd``.
+* ``"pcg"`` (sf = 4, where KT^T KT is outside the planes): the in-sweep
+  PCG, ``p = invd r + beta p``; ``rz = sum r^2 invd`` drives alpha, beta
+  and the energy, and ``<r, r>`` the stop test and the reported residual.
+
+The TPU's 1080p-class kernel has only the PCG form, so at sf <= 2 on such
+grids the port (scaled) and the JAX package (PCG) run two algebraically
+equal recurrences whose iterates agree only within the unconverged-CG
+drift bounds.
 
 The kernel is bound by memory bandwidth: about 19 f32 planes move per
-iteration and lane (93 MB at 960 x 1280) against about 27 flops per pixel.
+iteration and lane (93 MB at 960 x 1280; 21 in the PCG form) against about
+27 flops per pixel.
 """
 
 from __future__ import annotations
@@ -43,9 +66,14 @@ from ..ops.grid import box_upsample_adjoint, tilesum
 from .cg import tol_squared
 
 N_STENCIL = 9
-# Device scalar slots written by the kernels (csrc/stencil_cg.cu).
-S_R1, S_E, S_ITERS = 1, 5, 7
-N_SCAL = 9
+# Device scalar slots written by the kernels (csrc/stencil_cg.cu): r1 is
+# the dot that drives alpha and beta, rr the reported residual.
+S_R1, S_E, S_ITERS, S_RR = 1, 5, 7, 9
+N_SCAL = 10
+# Rows of per-block partial sums per lane.
+PART_ROWS = 3
+# The kernels' jacobi argument.
+JACOBI_MODES = {None: 0, "scaled": 1, "pcg": 2}
 MAX_BLOCK_THREADS = 1024
 F_ROWS = ("P11", "P12", "P13", "P22", "P23", "P33", "fwd_x", "bwd_x",
           "fwd_y", "bwd_y", "ktw")
@@ -172,32 +200,64 @@ def warm_start_energy(x: torch.Tensor, op, gm, z0u: torch.Tensor, lam: float,
     return ekt + lam * edata
 
 
+def jacobi_form(sf: int) -> str:
+    """The Jacobi form a solve at ``sf`` runs: ``"scaled"`` at sf <= 2 and
+    ``"pcg"`` at sf = 4 (where KT^T KT is not in the C planes), as the TPU
+    kernel chooses on the grids where all of its state is resident
+    (pallas_cg_vmem.py:1427)."""
+    return "scaled" if sf in (1, 2) else "pcg"
+
+
+def scale_c_planes(C: torch.Tensor, invd: torch.Tensor) -> torch.Tensor:
+    """``C'_d[i] = (s_i C_d[i]) s_{i+d}`` with ``s = sqrt(invd)``, the
+    planes of ``S M S`` (``_scale_c_band``). Outside the image s reads 0,
+    where C_d is 0 already."""
+    sh = gradops.shift
+    s = torch.sqrt(invd)
+    se = sh(s, 0, 1)
+    sw = sh(s, 0, -1)
+    mates = (s, se, sw, sh(s, 1, 0), sh(s, -1, 0), sh(se, 1, 0),
+             sh(se, -1, 0), sh(sw, 1, 0), sh(sw, -1, 0))
+    return torch.stack([(s * c) * m for c, m in zip(C.unbind(-3), mates)],
+                       dim=-3)
+
+
 def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
-                     tol: float = 1e-9, max_iter: int = 100, planes: bool = False):
+                     tol: float = 1e-9, max_iter: int = 100,
+                     planes: bool = False, invd=None):
     """Plain PyTorch version of the kernel, on ``(h, w)`` planes or
-    ``(B, h, w)`` lanes (every input with the same leading axis). Returns
-    ``(x, iters, r1, e_part)`` (and the C planes with ``planes=True``) as
-    device tensors, the scalars one per lane; an ``active`` flag per lane
-    on the device replaces the early exit, so nothing is read back to the
-    host."""
+    ``(B, h, w)`` lanes (every input with the same leading axis). ``invd``
+    turns on Jacobi preconditioning in the form :func:`jacobi_form` picks.
+    Returns ``(x, iters, r1, e_part)`` (and the C planes with
+    ``planes=True``, C' in the scaled form) as device tensors, the scalars
+    one per lane; an ``active`` flag per lane on the device replaces the
+    early exit, so nothing is read back to the host."""
+    form = None if invd is None else jacobi_form(sf)
+    pcg = form == "pcg"
     C = build_c_planes(op, gm, ktw, lam, sf)
     tol_sq = tol_squared(tol)
     x = x0
     r = depth_rhs_fields(op, gm, z0t, lam) - stencil_matvec(C, x0, ktw, sf)
     e = warm_start_energy(x0, op, gm, z0u, lam, sf)
-    r1 = lane_dot(r, r)
+    if form == "scaled":
+        s = torch.sqrt(invd)
+        C = scale_c_planes(C, invd)
+        r = s * r
+        x = torch.zeros_like(x0)
+    rr = lane_dot(r, r)
+    r1 = lane_dot(r * r, invd) if pcg else rr
     r0 = torch.zeros_like(r1)
     p = torch.zeros_like(x0)
     active = torch.ones(r1.shape, dtype=torch.bool, device=x0.device)
     iters = torch.zeros(r1.shape, dtype=torch.int32, device=x0.device)
     for k in range(1, max_iter + 2):
-        active = active & (r1 > tol_sq)
+        active = active & (rr > tol_sq)
         iters = iters + active.to(torch.int32)
         if k == 1:
             beta = torch.zeros_like(r1)
         else:
             beta = r1 / torch.where(r0 == 0, torch.ones_like(r0), r0)
-        p_new = r + per_pixel(beta) * p
+        p_new = (invd * r if pcg else r) + per_pixel(beta) * p
         w = stencil_matvec(C, p_new, ktw, sf)
         pw = lane_dot(p_new, w)
         alpha = r1 / torch.where(pw == 0, torch.ones_like(pw), pw)
@@ -205,12 +265,18 @@ def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
         on = per_pixel(active)
         x = torch.where(on, x + per_pixel(alpha) * p_new, x)
         r_new = r - per_pixel(alpha) * w
-        rr = lane_dot(r_new, r_new)
+        rr_new = lane_dot(r_new, r_new)
+        r1_new = lane_dot(r_new * r_new, invd) if pcg else rr_new
         r = torch.where(on, r_new, r)
         p = torch.where(on, p_new, p)
         r0 = torch.where(active, r1, r0)
-        r1 = torch.where(active, rr, r1)
-    out = (x, iters, r1, e)
+        r1 = torch.where(active, r1_new, r1)
+        rr = torch.where(active, rr_new, rr)
+    if form == "scaled":
+        x = x0 + s * x
+        rr = torch.sum(torch.where(invd > 0, r * r / invd,
+                                   torch.zeros_like(r)), dim=(-2, -1))
+    out = (x, iters, rr, e)
     return out + (C,) if planes else out
 
 
@@ -220,8 +286,8 @@ def _library():
 
     lib = native.load("stencil_cg")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.srps_stencil_cg.argtypes = [vp] * 12 + [ci, ci, ci, ci, cf, cf, ci,
-                                                 ci, ci, vp]
+    lib.srps_stencil_cg.argtypes = [vp] * 13 + [ci, ci, ci, ci, cf, cf, ci,
+                                                 ci, ci, ci, vp]
     lib.srps_stencil_cg.restype = ci
     return lib
 
@@ -240,11 +306,12 @@ def check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def pack_lanes(kernel: str, x0, op, gm, ktw, z0t, *, sf: int, max_iter: int,
-               block):
+               block, invd=None):
     """Check the inputs of a CUDA launch over the lanes of ``x0`` (B, h, w)
-    and stack the packs every depth-CG kernel reads: F (B, 11, h, w) =
-    [P11..P33, fwd_x, bwd_x, fwd_y, bwd_y, ktw] and R0 (B, 4, h, w) =
-    [QB1, QB2, QB3, z0t]. Returns ``(F, R0, (bx, by), blocks per lane)``."""
+    (and ``invd`` where given) and stack the packs every depth-CG kernel
+    reads: F (B, 11, h, w) = [P11..P33, fwd_x, bwd_x, fwd_y, bwd_y, ktw]
+    and R0 (B, 4, h, w) = [QB1, QB2, QB3, z0t]. Returns ``(F, R0, (bx, by),
+    blocks per lane)``."""
     if x0.device.type != "cuda":
         raise ValueError(f"{kernel} runs on cpu or cuda, not {x0.device}")
     if x0.dim() != 3:
@@ -264,6 +331,8 @@ def pack_lanes(kernel: str, x0, op, gm, ktw, z0t, *, sf: int, max_iter: int,
               "P23": op.P23, "P33": op.P33, "fwd_x": gm[0], "bwd_x": gm[1],
               "fwd_y": gm[2], "bwd_y": gm[3], "ktw": ktw, "QB1": op.QB1,
               "QB2": op.QB2, "QB3": op.QB3, "z0t": z0t, "x0": x0}
+    if invd is not None:
+        fields["invd"] = invd
     for name, t in fields.items():
         check_tensor(name, t, (B, h, w), x0.device)
     F = torch.stack([fields[k] for k in F_ROWS], dim=1)
@@ -280,44 +349,54 @@ def one_lane(x0, op, gm, *planes):
 
 def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
                tol: float = 1e-9, max_iter: int = 100, block=(256, 4),
-               planes: bool = False):
+               planes: bool = False, invd=None):
     """The depth CG: the CUDA kernels for a CUDA ``x0``, the plain version
     for a CPU one. ``x0`` is (h, w) for one problem or (B, h, w) for B
     lanes in one launch; every other input carries the same leading axes
     (``z0u`` is (..., 2, h, w)). ``block`` is the (x, y) thread-block
-    shape. Returns ``(x, iters, r1, e_part)`` like
-    ``cg_pallas_vmem_fromop[_batched](..., with_energy=True)``, the scalars
-    one per lane, plus the C planes (..., 9, h, w) with ``planes=True``.
-    Each lane's result is bit for bit that of its own B = 1 launch."""
+    shape. ``invd`` (like ``x0``) turns on Jacobi preconditioning in the
+    form :func:`jacobi_form` picks from ``sf``. Returns
+    ``(x, iters, r1, e_part)`` like ``cg_pallas_vmem_fromop[_batched](...,
+    with_energy=True)``, the scalars one per lane, plus the C planes
+    (..., 9, h, w) with ``planes=True``. Each lane's result is bit for bit
+    that of its own B = 1 launch."""
     if x0.device.type == "cpu":
         return stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, sf=sf, lam=lam,
-                                tol=tol, max_iter=max_iter, planes=planes)
+                                tol=tol, max_iter=max_iter, planes=planes,
+                                invd=invd)
     if x0.dim() == 2:
         out = stencil_cg(*one_lane(x0, op, gm, ktw, z0t, z0u), sf=sf,
                          lam=lam, tol=tol, max_iter=max_iter, block=block,
-                         planes=planes)
+                         planes=planes,
+                         invd=None if invd is None else invd.unsqueeze(0))
         return tuple(t[0] for t in out)
+    form = None if invd is None else jacobi_form(sf)
     F, R0, (bx, by), nb = pack_lanes("stencil_cg", x0, op, gm, ktw, z0t,
-                                     sf=sf, max_iter=max_iter, block=block)
+                                     sf=sf, max_iter=max_iter, block=block,
+                                     invd=invd)
     B, h, w = x0.shape
     dev = x0.device
     check_tensor("z0u", z0u, (B, 2, h, w), dev)
     x, r, p0, p1, wv = (torch.empty_like(x0) for _ in range(5))
     C = torch.empty((B, N_STENCIL, h, w), dtype=torch.float32, device=dev)
-    part = torch.empty(B * 2 * nb, dtype=torch.float32, device=dev)
+    part = torch.empty(B * PART_ROWS * nb, dtype=torch.float32, device=dev)
     scal = torch.empty((B, N_SCAL), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().srps_stencil_cg(
         F.data_ptr(), R0.data_ptr(), z0u.data_ptr(), x0.data_ptr(),
-        x.data_ptr(), r.data_ptr(), p0.data_ptr(), p1.data_ptr(),
-        wv.data_ptr(), C.data_ptr(), part.data_ptr(), scal.data_ptr(),
-        B, h, w, sf, float(lam), tol_squared(tol), int(max_iter), bx, by,
-        stream)
+        None if invd is None else invd.data_ptr(), x.data_ptr(),
+        r.data_ptr(), p0.data_ptr(), p1.data_ptr(), wv.data_ptr(),
+        C.data_ptr(), part.data_ptr(), scal.data_ptr(), B, h, w, sf,
+        float(lam), tol_squared(tol), int(max_iter), bx, by,
+        JACOBI_MODES[form], stream)
     if err != 0:
         raise RuntimeError(f"stencil CG kernel launch failed: CUDA error {err}")
     stencil_cg.launches += 1
-    out = (x, scal[:, S_ITERS].to(torch.int32), scal[:, S_R1], scal[:, S_E])
+    if form is not None:
+        stencil_cg.jacobi_launches += 1
+    out = (x, scal[:, S_ITERS].to(torch.int32), scal[:, S_RR], scal[:, S_E])
     return out + (C,) if planes else out
 
 
 stencil_cg.launches = 0
+stencil_cg.jacobi_launches = 0

@@ -171,8 +171,8 @@ def jax_to_numpy(tree):
 def test_lockstep_lanes_track_stream_lanes(rng, variant):
     """Lockstep and stream run the same per-lane functions; on the CPU the
     lane-batched plain CG sums each lane in its own order, so lanes agree
-    to f32 roundoff (on the card, bit for bit: chip_smoke.py phase 4b).
-    Jacobi has no lane-batched kernel and runs the PCG lane by lane."""
+    to f32 roundoff (on the card, bit for bit: chip_smoke.py phases 4b and
+    4f). Jacobi stacks each lane's invd into the lane-batched call."""
     cfg = SolverConfig(**SMALL, cg_variant="cgs" if variant == "cgs" else
                        "pipe", jacobi_preconditioner=variant == "jacobi")
     _, probs, states = _port_lanes(rng, 3, cfg=cfg)

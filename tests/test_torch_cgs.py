@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from test_pallas_cg import _problem
 from srmeetsps_cuda_tpu.config import SolverConfig as JConfig
 from srmeetsps_cuda_tpu.models import srps as jsrps
@@ -21,8 +22,10 @@ from srmeetsps_cuda_tpu.solve import pallas_cg
 from srmeetsps_cuda_tpu.solve.pallas_cg_cgs import cg_pallas_cgs
 from srmeetsps_cuda_tpu_torch import interop
 from srmeetsps_cuda_tpu_torch.config import SolverConfig
+from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
 from srmeetsps_cuda_tpu_torch.models import srps as tsrps
 from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
 CPU = torch.device("cpu")
 
@@ -131,6 +134,82 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="cpu or cuda"):
         cg.cgs_cg(meta(ts.z)[None], type(top)(*map(meta, top)), tp.gm,
                   tp.ktw, tp.z0t, sf=2, lam=1.0)
+
+
+FAULTS = ("x0 returned", "beta = 0", "alpha without its beta term",
+          "alpha x 0.9", "s without beta s", "p from r'")
+
+
+def _faulty_cgs(fault, x0, op, gm, ktw, z0t, *, sf, max_iter):
+    """``cgs_cg_plain`` of one problem run to its cap with ``fault``.
+    Returns ``(x, gamma)``."""
+    C = sc.build_c_planes(op, gm, ktw, 1.0, sf)
+
+    def mv(v):
+        return sc.stencil_matvec(C, v, ktw, sf)
+
+    x = x0
+    r = sc.depth_rhs_fields(op, gm, z0t, 1.0) - mv(x0)
+    w = mv(r)
+    gamma, delta = sc.lane_dot(r, r), sc.lane_dot(w, r)
+    gamma_old = alpha_old = torch.ones_like(gamma)
+    s = p = torch.zeros_like(x0)
+    for k in range(1, max_iter + 2):
+        beta = (torch.zeros_like(gamma) if k == 1 or fault == "beta = 0"
+                else gamma / gamma_old)
+        denom = delta - beta * gamma / alpha_old
+        if fault == "alpha without its beta term":
+            denom = delta
+        alpha = gamma / denom * (0.9 if fault == "alpha x 0.9" else 1.0)
+        s = w if fault == "s without beta s" else w + beta * s
+        r_new = r - alpha * s
+        p = (r_new if fault == "p from r'" else r) + beta * p
+        x = x + alpha * p
+        w = mv(r_new)
+        gamma_old, alpha_old = gamma, alpha
+        gamma, delta = sc.lane_dot(r_new, r_new), sc.lane_dot(w, r_new)
+        r = r_new
+    return (x0 if fault == "x0 returned" else x), gamma
+
+
+@pytest.fixture
+def one_thread():
+    """One torch thread: several test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("h,w,sf", [(240, 320, 2), (120, 160, 1),
+                                    (240, 320, 4)])
+def test_chip_bounds_catch_faulty_recurrences(h, w, sf, one_thread):
+    """``chip_smoke.py`` phase 3c holds the kernel to the plain version by
+    the relative RMS of the update x - x0 from the main path's warm start
+    and of x from a cold start x0 = 0, and by the relative gap of gamma =
+    <r, r>, after 2 and 12 iterations (``chip_smoke.UPD_BOUND`` /
+    ``RES_BOUND``). The plain version's recurrence written out here stays
+    inside every bound; each faulty copy fails at least one."""
+    data, _ = lambertian_dataset(h, w, sf, n=8, c=3, seed=sf)
+    prob, st, op = chip_smoke.depth_operator(data, CPU)
+    warm = (st.z, op, prob.gm, prob.ktw, prob.z0t)
+    starts = {"warm": warm, "cold": (torch.zeros_like(st.z),) + warm[1:]}
+    caught = {f: [] for f in (None,) + FAULTS}
+    for (start, args), cap in [(s, c) for s in starts.items()
+                               for c in (2, 12)]:
+        x0 = args[0]
+        px, _, pg = cg.cgs_cg_plain(*args, sf=sf, lam=1.0, max_iter=cap)
+        for fault in caught:
+            x, g = _faulty_cgs(fault, *args, sf=sf, max_iter=cap)
+            upd = chip_smoke.rel_rms(x - x0, px - x0)
+            gap = abs(float(g) - float(pg)) / abs(float(pg))
+            if upd > chip_smoke.UPD_BOUND[start][cap]:
+                caught[fault].append(f"{start} update cap {cap}: {upd:.2e}")
+            if gap > chip_smoke.RES_BOUND[start][cap]:
+                caught[fault].append(f"{start} gamma cap {cap}: {gap:.2e}")
+    assert not caught.pop(None)
+    missed = [f for f, c in caught.items() if not c]
+    assert not missed, missed
 
 
 @pytest.mark.cuda

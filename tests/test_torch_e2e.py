@@ -128,18 +128,13 @@ def test_cli_help_exits_zero(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--jacobi", "--dsloc", "a.mat,b.mat"],
     ["--dsloc", "a.mat", "--sharded", "2"],
-    ["--jacobi", "--serve"], ["--dsloc", "a.mat", "--show"],
+    ["--dsloc", "a.mat", "--show"],
     ["--dsloc", "a.mat", "--dump-operators"],
     ["--dsloc", "a.mat", "--image-dtype", "bfloat16"],
-    ["--jacobi", "--dsloc", "a.mat", "--cg-variant", "cgs"],
-    ["--dsloc", "a.mat", "--jacobi"],
 ], ids=lambda a: a[-1] if a[-1] != "a.mat" else a[-2])
 def test_cli_unported_options_exit_with_roadmap(argv):
-    """Unported options exit before any device or file is touched; the
-    batched, serve and CGS paths are ported, but --jacobi without --cpu
-    stays refused on them too."""
+    """Unported options exit before any device or file is touched."""
     with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
         cli.main(argv)
 

@@ -141,20 +141,32 @@ def test_degenerate_channel_keeps_previous_lighting_and_albedo(pair):
     _close(rt, rj, 1e-5)
 
 
-def test_iteration_one_matches_jnp_path(pair):
-    """One outer iteration with the generic CG path on both sides
-    (Jacobi PCG on the CPU; use_pallas=False in JAX): same CG iteration
-    count, energy and depth to f32 roundoff at a short cap."""
+def test_iteration_one_matches_jnp_path(pair, monkeypatch):
+    """One outer iteration with Jacobi on both sides: the port's plain
+    scaled-Jacobi stencil CG against the JAX package's kernel route (the
+    scaled-Jacobi Pallas kernel in interpret mode, tracked energy), to f32
+    roundoff at a short cap; and against the JAX jnp PCG
+    (use_pallas=False), the same recurrence in its in-sweep form, within
+    the unconverged-CG drift bound 3e-2 and the energy bound 5e-4."""
+    from srmeetsps_cuda_tpu.solve import pallas_cg
+    from srmeetsps_cuda_tpu.solve import pallas_cg_vmem as pvm
+
+    monkeypatch.setattr(pallas_cg, "INTERPRET", True)
+    monkeypatch.setattr(pvm, "vmem_mode", lambda *a, **k: "full_stencil")
     jp, js, sf = pair
     tp = interop.problem_from_numpy(jp, CPU)
     ts = interop.state_from_numpy(js, CPU)
     kw = dict(cg_max_iter=3, jacobi_preconditioner=True)
-    jn = jsrps.srps_iteration(js, jp, sf, jconfig.SolverConfig(**kw))
     tn = tsrps.srps_iteration(ts, tp, sf, tconfig.SolverConfig(**kw))
-    assert int(tn.cg_iters) == int(jn.cg_iters) == 4
-    assert tn.iteration == int(jn.iteration) == 1
-    _close(tn.z, jn.z, 1e-4)
-    _close(tn.energy, jn.energy, 1e-4, scale=False)
+    assert tn.iteration == 1
+    for use_pallas, rtol in [(True, 1e-4), (False, 3e-2)]:
+        jn = jsrps.srps_iteration(js, jp, sf, jconfig.SolverConfig(
+            **kw, use_pallas=use_pallas))
+        assert int(tn.cg_iters) == int(jn.cg_iters) == 4
+        assert int(jn.iteration) == 1
+        _close(tn.z, jn.z, rtol)
+        _close(tn.energy, jn.energy, 1e-4 if use_pallas else 5e-4,
+               scale=False)
 
 
 def test_should_stop_semantics():
@@ -170,22 +182,6 @@ def test_should_stop_semantics():
     assert bool(tsrps.should_stop(st(10.0, 10.01, 2), cfg))  # rel < tol
     assert not bool(tsrps.should_stop(st(9.0, 10.0, 3), cfg))
     assert bool(tsrps.should_stop(st(9.0, 10.0, 4), cfg))  # cap
-
-
-@pytest.mark.parametrize("case", ["cgs", "jacobi-off-cpu"])
-def test_unported_depth_solvers_raise(pair, case):
-    """Jacobi off the CPU (a meta tensor stands in for a CUDA one), with
-    the standard or the CGS variant, refuses before any arithmetic instead
-    of running another solver."""
-    jp, js, sf = pair
-    tp = interop.problem_from_numpy(jp, CPU)
-    ts = interop.state_from_numpy(js, CPU)
-    mom = tsrps.s_moments(tp, ts.s)
-    variant = "cgs" if case == "cgs" else "pipe"
-    cfg = tconfig.SolverConfig(jacobi_preconditioner=True, cg_variant=variant)
-    z = ts.z.to("meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsrps.estimate_depth(tp, mom, ts.rho, ts.dz, z, sf, cfg)
 
 
 @pytest.mark.parametrize("jacobi", [False, True])

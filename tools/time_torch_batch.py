@@ -6,9 +6,9 @@ CUDA card, taken in turns within one process.
 
 Prepares ``--lanes`` seeded Lambertian datasets on the card (in memory: no
 file loading), then runs each path ``2 * --rounds`` times in the order
-A B C ... C B A: the single fused solve of lane 0 with the standard and
-the Chronopoulos-Gear CG, and all lanes in stream and in lockstep mode
-with each CG. Each time is the host clock around the solve, between two
+A B C ... C B A: the single fused solve of lane 0 with the standard CG,
+the Chronopoulos-Gear CG and (where the package has it) the Jacobi
+preconditioned CG, and all lanes in stream and in lockstep mode with each. Each time is the host clock around the solve, between two
 device synchronisations. One more run of each path under
 ``torch.profiler`` gives the device's busy share of the solve. Prints one
 line per path and a JSON summary (written to ``--out`` when given). Needs
@@ -55,7 +55,8 @@ def main(argv=None) -> int:
              for s in range(args.lanes)]
     probs = [p for p, _ in pairs]
     states = [s for _, s in pairs]
-    cfgs = {"pipe": SolverConfig(), "cgs": SolverConfig(cg_variant="cgs")}
+    cfgs = {"pipe": SolverConfig(), "cgs": SolverConfig(cg_variant="cgs"),
+            "jacobi": SolverConfig(jacobi_preconditioner=True)}
 
     def single(variant):
         final, _ = srps.solve_fused(states[0], probs[0], sf, cfgs[variant])
@@ -66,14 +67,11 @@ def main(argv=None) -> int:
                                         mode=mode)
         return [int(f.iteration) for f in finals]
 
-    paths = {
-        "single pipe": lambda: single("pipe"),
-        "single cgs": lambda: single("cgs"),
-        "stream pipe": lambda: multi("stream", "pipe"),
-        "lockstep pipe": lambda: multi("lockstep", "pipe"),
-        "stream cgs": lambda: multi("stream", "cgs"),
-        "lockstep cgs": lambda: multi("lockstep", "cgs"),
-    }
+    paths = {}
+    for variant in cfgs:
+        paths[f"single {variant}"] = lambda v=variant: single(v)
+        for mode in ("stream", "lockstep"):
+            paths[f"{mode} {variant}"] = lambda m=mode, v=variant: multi(m, v)
 
     def timed(fn):
         torch.cuda.synchronize()
