@@ -30,6 +30,13 @@ falls back to the CPU or to a plain version):
 3e. 1088 x 1920, sf = 2 (the grid the TPU serves with
    ``_kernel_vmem_hybrid_stencil``): the stencil CG plain with phase 3's
    checks and Jacobi with phase 3d's;
+3f. the direct mask-gated matvec CG (``direct_cg``) the same way on the
+   grids of phase 3 and at 2176 x 3840, sf = 2 (bench.py's 4K grid), in its
+   three forms: r0 in the kernel with the tracked energy, the same with its
+   in-sweep Jacobi PCG, and given its residual, at phase 3c's two block
+   shapes and at 30 x 3, which splits sf = 4 tiles; then the direct and the
+   stencil operator against each other on the card (matvecs to f32
+   roundoff, the two kernels' CGs within phase 3c's bounds);
 4. the main path through the CLI entry point on a 960 x 1280, n = 20, c = 3,
    sf = 2 dataset written as a MAT v5 file: finite energies, the reference's
    stopping rule, a finite depth, every depth CG through the kernel; and the
@@ -54,7 +61,19 @@ falls back to the CPU or to a plain version):
    lockstep equals stream, one lane-batched Jacobi launch per outer
    iteration, no CGS launch;
 4g. a 1088 x 1920, n = 20, c = 3, sf = 2 file (BASELINE.md configuration
-   5) through the CLI with the standard CG and with ``--jacobi``.
+   5) through the CLI with the standard CG and with ``--jacobi``;
+4h. ``runtime.solver.solve`` on the phase-4 dataset with
+   ``SolverConfig(cg_operator="direct")``, with ``"direct"`` and Jacobi,
+   and with ``"direct_host_r0"``: every depth CG one ``direct_cg`` launch
+   and no other CG kernel, the stopping rule held, the energies within
+   phase 3's energy bound of the stencil CG's run (phase 4, or 4e under
+   Jacobi) with at most one outer iteration more or less; then the phase-4b
+   lanes through ``solve_batch`` with ``"direct"``: lockstep equals stream,
+   one lane-batched launch per outer iteration;
+4i. bench.py's 4K configuration (2176 x 3840, sf = 2, n = 8, c = 3) through
+   ``runtime.solver.solve`` with ``"direct"`` and with ``"stencil"``, in
+   turns: a finite depth, the stopping rule, outer iterations, ms per
+   outer iteration and the peak of allocated device memory.
 
 The line before the last but one is a JSON object with one entry per
 kernel and mode (its times per CG iteration at the main path's shapes, and
@@ -98,6 +117,10 @@ E_RTOL = 5e-4
 # s_i s_i+d, r0 unscaled, x = x0 + y, beta = 0, e0 at y = 0 and (PCG) p
 # built from r or the energy from <r, r> fail them on every grid
 # (tests/test_torch_jacobi.py::test_chip_bounds_catch_faulty_recurrences).
+# They hold the direct CG too (phase 3f): a float64 run stays inside them on
+# phase 3's grids, and the energy or beta from <r, r> under Jacobi, or a
+# Dx^T that reads t1 as 0 beyond a block's edge, fail them
+# (tests/test_torch_direct_cg.py::test_chip_bounds_catch_faulty_recurrences).
 UPD_BOUND = {"warm": {2: 0.25, 12: 0.25}, "cold": {2: 1e-5, 12: 1e-5}}
 RES_BOUND = {"warm": {2: 0.1, 12: 0.1}, "cold": {2: 5e-4, 12: 1e-2}}
 
@@ -123,6 +146,32 @@ STENCIL_PLANES, CGS_PLANES, JACOBI_PLANES = 19, 17, 20
 # quotes per CG iteration): 9 C planes and 10 state planes read or written;
 # the PCG form reads invd in both sweeps.
 ITERATION_PLANES = {"plain": 19, "scaled": 19, "pcg": 21}
+# The direct-matvec CG (csrc/direct_cg.cu), counted from _matvec_band: the
+# matvec about 42 flops a pixel (gradients 10, t1..t3 15, the adjoints 10,
+# the tile sum and the sums 7) and the p update, dots and vector updates 8
+# per iteration; r0 in the kernel adds the rhs (~12), M x0 (42), the energy
+# (~45) and a dot to the prologue; a given residual only the dot. Jacobi adds
+# rz and z = invd r (3 per iteration, 2 in the prologue). Planes read once
+# and written once: F (11), R0 (4) and Z0U (2) or b (1), x0 in, x out, and
+# invd under Jacobi; the design streams F (11) and 10 state planes per
+# iteration, invd twice more under Jacobi.
+DIRECT_FORMS = {
+    # form: (flops, planes, stream planes)
+    "direct": ({"prologue": 100, "iteration": 50}, 19, 21),
+    "direct jacobi": ({"prologue": 102, "iteration": 53}, 20, 23),
+    "direct host_r0": ({"prologue": 2, "iteration": 50}, 14, 21),
+}
+
+# The TPU kernels each form of the direct CG stands for (file:line of the
+# kernel function), the first the one it is named by.
+DIRECT_REPLACES = {
+    "direct": ("pallas_cg_vmem.py:961", "pallas_cg_vmem.py:1148",
+               "pallas_cg_pipe.py:80"),
+    "direct jacobi": ("pallas_cg_pipe.py:80", "pallas_cg_vmem.py:961",
+                      "pallas_cg_vmem.py:1148"),
+    "direct host_r0": ("pallas_cg.py:163", "pallas_cg.py:237",
+                       "pallas_cg_fused.py:50", "pallas_cg_pipe.py:80"),
+}
 
 
 def bound(hw: int, lanes: int, iters: int, planes: int, flops: dict,
@@ -378,66 +427,95 @@ def energy_excess(e, pe, const) -> tuple:
     return gap, gap / (E_RTOL * abs(want) + 1e-6 * abs(const))
 
 
-def cg_vs_plain(label, grids, jacobi: bool):
-    """Phase 3c (``jacobi=False``: the CGS kernel) or 3d and 3e (the
-    Jacobi forms of the stencil CG, ``invd``) on ``grids``: ``(h, w, sf) ->
-    (lanes, stacked)``. Each lane from the main path's warm start and from
-    a cold start x0 = 0, at two thread-block shapes, against the plain
-    version: iteration counts, the update x - x0 and the reported residual
-    after 2 and 12 iterations (UPD_BOUND, RES_BOUND); under Jacobi also C'
-    bit-equal and the tracked energy from the warm start within phase 3's
-    bound at every cap. Then the stacked lanes bit for bit their solo
-    launches, and ms per CG iteration. Returns each grid's JSON entry
+def cg_vs_plain(label, grids, form: str):
+    """Phase 3c (``form="cgs"``: the CGS kernel), 3d and 3e (``"jacobi"``:
+    the Jacobi forms of the stencil CG, ``invd``) or 3f (a form of the
+    direct CG: ``"direct"``, r0 in the kernel and the energy tracked;
+    ``"direct jacobi"``, the same with its in-sweep PCG; ``"direct
+    host_r0"``, given its residual b = rhs - M x0) on ``grids``: ``(h, w,
+    sf) -> (lanes, stacked)``. Each lane from the main path's warm start and
+    from a cold start x0 = 0, at two thread-block shapes (the direct CG at
+    a third, 30 x 3, whose rows and columns split sf = 4 tiles), against
+    the plain version: iteration counts, the update x - x0 and the reported residual
+    after 2 and 12 iterations (UPD_BOUND, RES_BOUND); C' bit-equal for the
+    stencil Jacobi forms; the tracked energy from the warm start within
+    phase 3's bound at every cap. Then the stacked lanes bit for bit their
+    solo launches, and ms per CG iteration. Returns each grid's JSON entry
     (without launches)."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
-    if jacobi:
+    direct = form.startswith("direct")
+    host = form == "direct host_r0"
+    tracked = form in ("jacobi", "direct", "direct jacobi")
+    if form == "jacobi":
         kernel, plain, counter = sc.stencil_cg, sc.stencil_cg_plain, \
             "jacobi_launches"
+    elif direct:
+        kernel, plain = dc.direct_cg, dc.direct_cg_plain
+        counter = {"direct": "launches", "direct jacobi": "jacobi_launches",
+                   "direct host_r0": "host_r0_launches"}[form]
     else:
         kernel, plain, counter = cg.cgs_cg, cg.cgs_cg_plain, "launches"
-    res = "residual" if jacobi else "gamma"
+    res = "gamma" if form == "cgs" else "residual"
 
-    def call(fn, ln, x0=None, checks=False, **kw):
+    def given_residual(ln, x0, sf):
+        return (sc.depth_rhs_fields(ln[1], ln[2], ln[4], 1.0)
+                - dc.direct_matvec(x0, ln[1], ln[2], ln[3], 1.0, sf))
+
+    def call(fn, ln, x0=None, checks=False, b=None, **kw):
         """``(x, iterations, residual, e_part, C)`` of ``fn`` on the inputs
         ``ln`` (a lane or the stacked lanes), from ``x0`` where given;
-        e_part and C are None for CGS, C also without ``checks``."""
-        args = ((ln[0] if x0 is None else x0),) + tuple(ln[1:6 if jacobi
-                                                            else 5])
-        if not jacobi:
-            return tuple(fn(*args, **kw)) + (None, None)
-        out = tuple(fn(*args, invd=ln[6], planes=checks, **kw))
-        return out if checks else out + (None,)
+        e_part is None without a tracked energy, C without ``checks`` and
+        outside the stencil Jacobi forms. The direct form given its
+        residual takes ``b``, or builds it from x0."""
+        x0 = ln[0] if x0 is None else x0
+        if form == "cgs":
+            return tuple(fn(x0, *ln[1:5], **kw)) + (None, None)
+        if form == "jacobi":
+            out = tuple(fn(x0, *ln[1:6], invd=ln[6], planes=checks, **kw))
+            return out if checks else out + (None,)
+        if host and b is None:
+            b = given_residual(ln, x0, kw["sf"])
+        return tuple(fn(x0, *ln[1:6], invd=ln[6] if "jacobi" in form
+                        else None, b=b, with_energy=not host, **kw)) + (None,)
 
+    blocks = ((256, 4), (32, 16)) + (((30, 3),) if direct else ())
     entries = {}
     for (h, w, sf), (lanes, stacked) in grids.items():
-        form = sc.jacobi_form(sf) if jacobi else "cgs"
-        name = f"stencil_cg jacobi {form}" if jacobi else "cgs_cg"
+        jform = sc.jacobi_form(sf) if form == "jacobi" else form
+        name = {"jacobi": f"stencil_cg jacobi {jform}", "cgs": "cgs_cg"}.get(
+            form, form.replace("direct", "direct_cg", 1))
         # PCG stops on <r, r> and the CGS on gamma, out of f32's reach at
         # tol 1e-9 except where sf = 1 puts all of KT^T KT on the
-        # diagonal; the scaled form stops on <r', r'>, which can get there.
-        converges = form == "scaled" or (form == "cgs" and sf == 1)
+        # diagonal; the scaled form stops on <r', r'>, which can get there,
+        # and the direct CG's PCG on <r, r> from some warm starts. Where it
+        # can stop early, the kernel's count must be the plain version's.
+        converges = direct or jform == "scaled" or (form == "cgs" and sf == 1)
         gaps, energy = {}, (0.0, 0.0)
         for seed, ln in enumerate(lanes):
             const = float(ln[1].const)
             for start, cap in itertools.product(("warm", "cold"),
                                                 (2, 12, 100)):
                 x0 = ln[0] if start == "warm" else torch.zeros_like(ln[0])
-                px, pk, pr, pe, pC = call(plain, ln, x0, checks=True, sf=sf,
-                                          lam=1.0, max_iter=cap)
-                for block in ((256, 4), (32, 16)):
+                b_res = given_residual(ln, x0, sf) if host else None
+                px, pk, pr, pe, pC = call(plain, ln, x0, checks=True,
+                                          b=b_res, sf=sf, lam=1.0,
+                                          max_iter=cap)
+                for block in blocks:
                     where = (f"{name} {h}x{w} sf={sf} seed {seed} {start} "
                              f"cap {cap} block {block}")
                     before = getattr(kernel, counter)
-                    x, k, r1, e, C = call(kernel, ln, x0, checks=True, sf=sf,
-                                          lam=1.0, max_iter=cap, block=block)
+                    x, k, r1, e, C = call(kernel, ln, x0, checks=True,
+                                          b=b_res, sf=sf, lam=1.0,
+                                          max_iter=cap, block=block)
                     torch.cuda.synchronize()
                     if getattr(kernel, counter) != before + 1:
                         raise AssertionError(f"{where}: launch not counted")
-                    if jacobi and not torch.equal(C, pC):
+                    if form == "jacobi" and not torch.equal(C, pC):
                         raise AssertionError(
                             f"{where}: C' differs from the plain version's "
                             f"by {float((C - pC).abs().max())}")
@@ -451,7 +529,7 @@ def cg_vs_plain(label, grids, jacobi: bool):
                     # From the cold start e_part begins at sum z0s^2 (~1e12
                     # at 960 x 1280), whose f32 ulp swamps the energy; the
                     # bound is phase 3's, for warm starts.
-                    if jacobi and start == "warm":
+                    if tracked and start == "warm":
                         de, ratio = energy_excess(e, pe, const)
                         if ratio > 1:
                             raise AssertionError(
@@ -482,38 +560,46 @@ def cg_vs_plain(label, grids, jacobi: bool):
                 raise AssertionError(f"{name} lane {b} differs from its solo "
                                      "launch")
         cap = 100
-        run_k = lambda: call(kernel, lanes[0], sf=sf, lam=1.0,  # noqa: E731
-                             max_iter=cap)
-        run_p = lambda: call(plain, lanes[0], sf=sf, lam=1.0,  # noqa: E731
-                             max_iter=cap)
+        b0 = given_residual(lanes[0], lanes[0][0], sf) if host else None
+        run_k = lambda: call(kernel, lanes[0], b=b0, sf=sf,  # noqa: E731
+                             lam=1.0, max_iter=cap)
+        run_p = lambda: call(plain, lanes[0], b=b0, sf=sf,  # noqa: E731
+                             lam=1.0, max_iter=cap)
         t_k1, t_p1, t_p2, t_k2 = (cuda_ms(run_k, 3), cuda_ms(run_p, 2),
                                   cuda_ms(run_p, 2), cuda_ms(run_k, 3))
         n_it = int(run_k()[1])
         ms_k = (t_k1 + t_k2) / 2 / (cap + 1)
         ms_p = (t_p1 + t_p2) / 2 / (cap + 1)
-        if jacobi:
+        if form == "jacobi":
             b_ms, b_by, s_ms = bound(h * w, 1, n_it, JACOBI_PLANES,
-                                     JACOBI_FLOPS[form], sf,
-                                     ITERATION_PLANES[form], per=cap + 1)
+                                     JACOBI_FLOPS[jform], sf,
+                                     ITERATION_PLANES[jform], per=cap + 1)
+        elif direct:
+            flops, planes, stream = DIRECT_FORMS[form]
+            b_ms, b_by, s_ms = bound(h * w, 1, n_it, planes, flops, sf,
+                                     stream, per=cap + 1)
         else:
             b_ms, b_by, s_ms = bound(h * w, 1, n_it, CGS_PLANES, CGS_FLOPS,
                                      sf, per=cap + 1)
         print(f"[{label}] {name} {h}x{w} sf={sf}: "
-              + ("C' bit-equal, " if jacobi else "")
+              + ("C' bit-equal, " if form == "jacobi" else "")
               + f"iterations equal ({n_it} of seed 0 at cap 100); relative "
               f"RMS of the update / relative gap of {res}, worst of "
-              f"{len(lanes)} seeds and blocks 256x4 and 32x16: "
+              f"{len(lanes)} seeds and blocks "
+              + ", ".join(f"{x}x{y}" for x, y in blocks) + ": "
               + "; ".join(f"{st} cap {c} {u:.2e} / {g:.2e}"
                           for (st, c), (u, g) in gaps.items())
               + (f"; warm-start energy max|dE| {energy[0]:.3e} "
-                 f"({energy[1]:.3f} of its bound)" if jacobi else "")
+                 f"({energy[1]:.3f} of its bound)" if tracked else "")
               + f"; max|dx| warm cap 2 {max_dx:.3e}; B={len(lanes)} lanes "
               f"bit-equal to solo; kernel {ms_k:.4f} ms/CG-iter, plain "
               f"{ms_p:.4f} ms/CG-iter (per launched iteration), bound "
               f"{b_ms:.5f} ({b_by}), stream bound {s_ms:.4f}", flush=True)
-        if jacobi:
+        if form == "jacobi":
             source, replaces = "stencil_cg.cu", "pallas_cg_vmem.py:" + (
                 "708" if (h, w) == (1088, 1920) else "403")
+        elif direct:
+            source, replaces = "direct_cg.cu", DIRECT_REPLACES[form][0]
         else:
             source, replaces = "cgs_cg.cu", "pallas_cg_cgs.py:87"
         entries[h, w, sf] = {
@@ -526,10 +612,62 @@ def cg_vs_plain(label, grids, jacobi: bool):
             f"{res}_rel_gap": gaps["warm", 2][1], "cg_iterations": n_it,
             "unit": f"per launched CG iteration, {h}x{w} sf {sf}, "
                     f"{cap + 1} launched, {n_it} run"}
-        if jacobi:
+        if direct:
+            entries[h, w, sf]["also_replaces"] = [
+                "srmeetsps_cuda_tpu/solve/" + r
+                for r in DIRECT_REPLACES[form][1:]]
+        if tracked:
             entries[h, w, sf].update(energy_abs_gap=energy[0],
                                      energy_gap_of_bound=energy[1])
     return entries
+
+
+def direct_vs_stencil(label, grids):
+    """Phase 3f: the direct and the stencil operator on the card. The plain
+    matvecs on a seeded vector agree to f32 roundoff (2e-6 of the largest
+    |M v|), and the two kernels' CGs after 2 iterations, from the warm and
+    the cold start, within UPD_BOUND / RES_BOUND and the energy within
+    phase 3's bound (after 12 iterations the gaps are printed)."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
+    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+
+    for (h, w, sf), (lanes, _) in grids.items():
+        x0, op, gm, ktw, z0t, z0u, _ = lanes[0]
+        g = torch.Generator(device=x0.device).manual_seed(sf)
+        v = torch.randn(x0.shape, generator=g, device=x0.device)
+        wd = dc.direct_matvec(v, op, gm, ktw, 1.0, sf)
+        ws = sc.stencil_matvec(sc.build_c_planes(op, gm, ktw, 1.0, sf), v,
+                               ktw, sf)
+        mv_gap = float((wd - ws).abs().max() / ws.abs().max())
+        if not mv_gap <= 2e-6:
+            raise AssertionError(f"{h}x{w} sf={sf}: direct and stencil "
+                                 f"matvecs differ by {mv_gap:.3e} of max|Mv|")
+        const = float(op.const)
+        out = []
+        for start, cap in itertools.product(("warm", "cold"), (2, 12)):
+            xs = x0 if start == "warm" else torch.zeros_like(x0)
+            xd, _, rd, ed = dc.direct_cg(xs, op, gm, ktw, z0t, z0u, sf=sf,
+                                         lam=1.0, max_iter=cap,
+                                         with_energy=True)
+            xt, _, rt, et = sc.stencil_cg(xs, op, gm, ktw, z0t, z0u, sf=sf,
+                                          lam=1.0, max_iter=cap)
+            upd = rel_rms(xd - xs, xt - xs)
+            gap = abs(float(rd) - float(rt)) / abs(float(rt))
+            ratio = energy_excess(ed, et, const)[1] if start == "warm" else 0
+            out.append(f"{start} cap {cap} {upd:.2e} / {gap:.2e}"
+                       + (f" / {ratio:.3f}" if start == "warm" else ""))
+            if cap == 2 and (upd > UPD_BOUND[start][cap]
+                             or gap > RES_BOUND[start][cap] or ratio > 1):
+                raise AssertionError(
+                    f"{h}x{w} sf={sf} {start}: direct vs stencil kernels "
+                    f"update {upd:.3e}, residual {gap:.3e}, energy {ratio:.3f}"
+                    " of its bound")
+        print(f"[{label}] direct vs stencil {h}x{w} sf={sf}: matvecs within "
+              f"{mv_gap:.2e} of max|Mv|; kernels' CGs, relative RMS of the "
+              "update / relative gap of the residual / energy over its "
+              "bound: " + "; ".join(out), flush=True)
 
 
 def stop_rule_held(energies, tol, max_iterations) -> bool:
@@ -576,13 +714,19 @@ def run_cli(argv, tmp):
 def kernel_counters():
     """The launch counts each run is read by: name -> (object, attribute).
     ``stencil_cg`` counts every run of the stencil CG kernels, ``stencil_cg
-    jacobi`` those in a Jacobi form."""
+    jacobi`` those in a Jacobi form; ``direct_cg`` every run of the direct
+    CG kernels, ``direct_cg jacobi`` those with invd and ``direct_cg
+    host_r0`` those given their residual."""
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
     return {"stencil_cg": (sc.stencil_cg, "launches"),
             "stencil_cg jacobi": (sc.stencil_cg, "jacobi_launches"),
-            "cgs_cg": (cg.cgs_cg, "launches")}
+            "cgs_cg": (cg.cgs_cg, "launches"),
+            "direct_cg": (dc.direct_cg, "launches"),
+            "direct_cg jacobi": (dc.direct_cg, "jacobi_launches"),
+            "direct_cg host_r0": (dc.direct_cg, "host_r0_launches")}
 
 
 def reset_counts():
@@ -595,14 +739,29 @@ def read_counts() -> dict:
             for k, (obj, attr) in kernel_counters().items()}
 
 
-def expected_counts(n: int, cli_extra) -> dict:
-    """The counts of ``n`` depth solves of a run with ``cli_extra``: Jacobi
-    runs the stencil CG in a Jacobi form, whatever the --cg-variant."""
+def expected_counts(n: int, cli_extra=(), operator: str = "stencil") -> dict:
+    """The counts of ``n`` depth solves of a run with ``cli_extra`` (or the
+    same options of a ``SolverConfig``) and ``cg_operator``: Jacobi runs the
+    stencil CG in a Jacobi form, whatever the --cg-variant, and the direct
+    CG its PCG; the CGS variant without Jacobi runs the CGS kernel for the
+    stencil and the direct operator (depth_cg's routing)."""
     jacobi = "--jacobi" in cli_extra
-    cgs = "cgs" in cli_extra and not jacobi
-    return {"stencil_cg": 0 if cgs else n,
-            "stencil_cg jacobi": n if jacobi else 0,
-            "cgs_cg": n if cgs else 0}
+    cgs = "cgs" in cli_extra and not jacobi and operator != "direct_host_r0"
+    stencil = operator == "stencil" and not cgs
+    direct = operator != "stencil" and not cgs
+    return {"stencil_cg": n if stencil else 0,
+            "stencil_cg jacobi": n if stencil and jacobi else 0,
+            "cgs_cg": n if cgs else 0,
+            "direct_cg": n if direct else 0,
+            "direct_cg jacobi": n if direct and jacobi else 0,
+            "direct_cg host_r0": n if operator == "direct_host_r0" else 0}
+
+
+def cli_extra_of(cfg) -> tuple:
+    """The CLI options that stand for a ``SolverConfig``'s Jacobi and CG
+    variant (expected_counts reads them)."""
+    return (("--jacobi",) if cfg.jacobi_preconditioner else ()) + (
+        ("--cg-variant", "cgs") if cfg.cg_variant == "cgs" else ())
 
 
 def main_path(label, tmp, path, data, z_true, cli_extra=()):
@@ -818,6 +977,141 @@ def small_input_vs_cpu(label, jacobi=False):
           f"{runs['cpu']}", flush=True)
 
 
+def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True):
+    """Phase 4h (and 4i): one solve of ``data`` through
+    ``runtime.solver.solve`` with ``cfg``, the launch counts set to 0 just
+    before and read just after, and the peak of allocated device memory.
+    Checks what main_path checks; with ``ref`` (the energies of another
+    operator's run of the same data) also at most one outer iteration more
+    or less and the energies within ``energy_bound(ref[0], const)``, or
+    with ``hold=False`` only prints how far they lie. Returns the run as
+    main_path does, with ``peak_bytes``."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.config import RuntimeConfig
+    from srmeetsps_cuda_tpu_torch.runtime.solver import solve
+
+    h, w = data.mask.shape
+    what = (f"cg_operator={cfg.cg_operator}"
+            + (" jacobi" if cfg.jacobi_preconditioner else "")
+            + f" {h}x{w} n={data.I.shape[0]} sf={data.sf}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    final, metrics = solve(data, cfg, RuntimeConfig(fused_outer_loop=True),
+                           device=torch.device("cuda"), verbose=False)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    iters = [r for r in metrics if "iteration" in r]
+    energies = [r["energy"] for r in iters]
+    cg_iters = [r["cg_iterations"] for r in iters]
+    n_it, dt = metrics[-1]["iterations"], metrics[-1]["total_seconds"]
+    if len(iters) != n_it or not all(map(math.isfinite, energies)):
+        raise AssertionError(f"{what}: energies not finite or incomplete: "
+                             f"{iters}")
+    if not stop_rule_held(energies, cfg.tolerance, cfg.max_iterations):
+        raise AssertionError(f"{what}: stopping rule violated: {energies}")
+    if launches != expected_counts(n_it, cli_extra_of(cfg), cfg.cg_operator):
+        raise AssertionError(f"{what}: kernel runs {launches} for {n_it} "
+                             "outer iterations")
+    # Only a Jacobi form's stop test can come under tol^2 = 1e-18 in f32.
+    cap = cfg.cg_max_iter + 1
+    if not all(c == cap or (cfg.jacobi_preconditioner and 0 < c < cap)
+               for c in cg_iters):
+        raise AssertionError(f"{what}: CG iterations {cg_iters} off the cap")
+    m = torch.as_tensor(data.mask) != 0
+    z = final.z.cpu()
+    if not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"{what}: final depth is not finite")
+    rmse = float((z[m] - torch.as_tensor(z_true)[m]).double().square()
+                 .mean().sqrt())
+    gap = ""
+    if ref is not None:
+        k = min(len(ref), n_it)
+        bnd = energy_bound(ref[0], const)
+        if hold:
+            if abs(len(ref) - n_it) > 1:
+                raise AssertionError(f"{what}: {n_it} outer iterations, "
+                                     f"the other run {len(ref)}")
+            check_close(f"{what} energies vs the other run's (const "
+                        f"{const})", energies[:k], ref[:k], 0, bnd)
+        gap = (f"; the other run: {len(ref)} outer iterations, energies "
+               f"max gap {max(abs(x - y) for x, y in zip(energies, ref)):.4f}"
+               f" (phase 3's bound {bnd:.3f})")
+    print(f"[{label}] solve {what}: {n_it} outer iterations, final energy "
+          f"{energies[-1]:.4f}, solve {dt:.4f} s ({1e3 * dt / n_it:.3f} "
+          f"ms/outer-iter), peak allocated {peak / 2**30:.3f} GiB, launches "
+          f"{launches}, CG iterations {cg_iters}, depth RMSE vs truth "
+          f"{rmse:.4f}{gap}", flush=True)
+    print(f"[{label}] energy trace {energies}", flush=True)
+    return {"iterations": n_it, "energies": energies, "seconds": dt,
+            "launches": launches, "rmse": rmse, "peak_bytes": peak}
+
+
+def api_lanes(label, datas, cfg):
+    """Phase 4h: ``datas`` (zero-padded to their common grid) through
+    ``parallel.batched.solve_batch`` in both modes with ``cfg``: lockstep
+    lanes equal stream lanes, and lockstep makes one lane-batched launch
+    per outer iteration. Returns the lockstep launch counts."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.parallel import batched
+    from srmeetsps_cuda_tpu_torch.runtime.solver import prepare
+
+    dev = torch.device("cuda")
+    H = max(d.mask.shape[0] for d in datas)
+    W = max(d.mask.shape[1] for d in datas)
+    runs = {}
+    for mode in ("stream", "lockstep"):
+        pairs = [prepare(d, cfg, dev, pad_to=(H, W)) for d in datas]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        finals, traces = batched.solve_batch([s for _, s in pairs],
+                                             [p for p, _ in pairs], 2, cfg,
+                                             mode=mode)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lanes = [t[:int(f.iteration)].tolist() for f, t in zip(finals, traces)]
+        runs[mode] = (lanes, dt, read_counts())
+    (stream, t_s, n_s), (lock, t_l, n_l) = runs["stream"], runs["lockstep"]
+    extra = cli_extra_of(cfg)
+    if lock != stream:
+        raise AssertionError(f"lockstep lanes {lock} differ from stream "
+                             f"lanes {stream}")
+    if n_s != expected_counts(sum(map(len, stream)), extra, cfg.cg_operator):
+        raise AssertionError(f"stream: launches {n_s} for "
+                             f"{list(map(len, stream))} iterations")
+    if n_l != expected_counts(max(map(len, lock)), extra, cfg.cg_operator):
+        raise AssertionError(f"lockstep: launches {n_l} for "
+                             f"{max(map(len, lock))} outer iterations")
+    B = len(datas)
+    print(f"[{label}] solve_batch cg_operator={cfg.cg_operator}, {B} lanes "
+          f"padded to {H}x{W}: lockstep equals stream; stream {t_s:.4f} s "
+          f"({B / t_s:.2f} solves/s), lockstep {t_l:.4f} s ({B / t_l:.2f} "
+          f"solves/s, lane-batched launches {n_l} for "
+          f"{max(map(len, lock))} outer iterations); outer iterations "
+          f"{[len(t) for t in lock]}", flush=True)
+    return n_l
+
+
+def direct_entries(per_form, launches):
+    """The ``kernels`` line's entries of the direct CG, one per form: the
+    960 x 1280 sf = 2 figures, those of the other grids under ``grids``,
+    and the launches of the main-path runs ``launches[form]``."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
+            "cg_iterations", "update_rel_rms", "residual_rel_gap",
+            "energy_gap_of_bound")
+    out = []
+    for form, grids in per_form.items():
+        entry = dict(grids[960, 1280, 2])
+        entry["grids"] = {f"{h}x{w} sf {sf}": {k: e[k] for k in keys if k in e}
+                          for (h, w, sf), e in grids.items()}
+        entry.update(launches[form])
+        out.append(entry)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -827,6 +1121,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from srmeetsps_cuda_tpu_torch import native
+        from srmeetsps_cuda_tpu_torch.config import SolverConfig
         from srmeetsps_cuda_tpu_torch.device import set_precision
     except ImportError as e:
         print(f"chip_smoke: the srmeetsps_cuda_tpu_torch package is missing "
@@ -839,7 +1134,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    kernels = ["stencil_cg", "cgs_cg"]
+    kernels = ["stencil_cg", "cgs_cg", "direct_cg"]
     fresh = [k for k in kernels if not native.library_path(k).exists()]
     native.build_all(kernels)
     for k in kernels:
@@ -855,18 +1150,30 @@ def main() -> int:
     entry = kernel_vs_plain(label, grids)[960, 1280, 2]
     stencil_lanes(label, entry, *shared[960, 1280, 2])
     cgs_entry = cg_vs_plain(label, {g: shared[g] for g in grids},
-                            jacobi=False)[960, 1280, 2]
-    jac = cg_vs_plain(label, shared, jacobi=True)
+                            "cgs")[960, 1280, 2]
+    jac = cg_vs_plain(label, shared, "jacobi")
     scaled_entry, pcg_entry = jac[960, 1280, 2], jac[960, 1280, 4]
-    del shared
+    # 3f on phase 3's grids.
+    phase3 = {g: shared[g] for g in grids}
+    direct = {form: cg_vs_plain(label, phase3, form) for form in DIRECT_FORMS}
+    direct_vs_stencil(label, phase3)
+    del shared, phase3
     big = (1088, 1920, 2)
     big_entry = kernel_vs_plain(label, [big])[big]
     big_entry["name"] = "stencil_cg 1088x1920"
     big_jac = cg_vs_plain(label, {big: stacked_lanes(*big, range(2), dev)},
-                          jacobi=True)[big]
+                          "jacobi")[big]
     big_entry["jacobi"] = {k: big_jac[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "cg_iterations",
         "energy_abs_gap", "energy_gap_of_bound")}
+    # 3f at bench.py's 4K grid.
+    k4 = (2176, 3840, 2)
+    k4_lanes = {k4: stacked_lanes(*k4, range(4), dev)}
+    for form in DIRECT_FORMS:
+        direct[form].update(cg_vs_plain(label, k4_lanes, form))
+    direct_vs_stencil(label, k4_lanes)
+    del k4_lanes
+    direct_launches = {form: {} for form in DIRECT_FORMS}
 
     with tempfile.TemporaryDirectory() as tmp:
         a, a_data, a_true = write_dataset(tmp, 960, 1280, seed=0)
@@ -924,6 +1231,24 @@ def main() -> int:
               f"{main['rmse']:.4f}", flush=True)
         small_input_vs_cpu(label, jacobi=True)
 
+        # 4h: the direct CG's operators through the runtime API, held to
+        # the stencil CG's runs of the same file (phase 4, and 4e under
+        # Jacobi).
+        for form, cfg, ref in (
+                ("direct", SolverConfig(cg_operator="direct"), main),
+                ("direct jacobi", SolverConfig(cg_operator="direct",
+                                               jacobi_preconditioner=True),
+                 jac_a),
+                ("direct host_r0", SolverConfig(cg_operator="direct_host_r0"),
+                 main)):
+            run = api_solve(label, a_data, a_true, cfg, ref["energies"], const)
+            counter = form.replace("direct", "direct_cg", 1)
+            direct_launches[form]["launches"] = run["launches"][counter]
+        n_lock = api_lanes(label, [a_data, b_data, c_data, a_data],
+                           SolverConfig(cg_operator="direct"))
+        direct_launches["direct"]["batched"] = {
+            "lanes": 4, "launches": n_lock["direct_cg"]}
+
         # 4f: the batched run with --jacobi, and with --cg-variant cgs too.
         _, n_lock = batched_path(label, tmp, lanes, {a: jac_a}, b, grid,
                                  cli_extra=("--jacobi",))
@@ -954,9 +1279,51 @@ def main() -> int:
         print(f"[{label}] 1088x1920 n=20: {per_it[0]:.3f} ms/outer-iter "
               f"standard, {per_it[1]:.3f} --jacobi, against "
               f"{per_it[2]:.3f} standard at 960x1280", flush=True)
+        os.remove(e)
+
+    # 4i: bench.py's 4K configuration, built in memory, in turns.
+    from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
+
+    data4k, true4k = lambertian_dataset(*k4[:2], 2, n=8, c=3, seed=0)
+    # The constant E cancels, that of the first depth operator.
+    const4k = float(depth_operator(data4k, dev)[2].const)
+    runs4k = {"direct": [], "stencil": []}
+    for op in ("direct", "stencil", "stencil", "direct"):
+        ref = runs4k["stencil" if op == "direct" else "direct"]
+        # At 4K E (~120-330) is e_part + const with const ~6e6, rounded to
+        # its ulp (0.5) at each of 101 CG steps: as large as the steps the
+        # stopping rule compares, so the two operators' traces are printed
+        # against each other, not held.
+        runs4k[op].append(api_solve(
+            label, data4k, true4k, SolverConfig(cg_operator=op),
+            ref[0]["energies"] if ref else None, const4k, hold=False))
+
+    def summary(runs, counter):
+        if runs[0]["energies"] != runs[1]["energies"]:
+            raise AssertionError(f"4K {counter}: a repeated solve gave "
+                                 f"{runs[1]['energies']}, the first "
+                                 f"{runs[0]['energies']}")
+        return {"launches": runs[0]["launches"][counter],
+                "outer_iterations": runs[0]["iterations"],
+                "ms_per_outer_iteration": [1e3 * r["seconds"] / r["iterations"]
+                                           for r in runs],
+                "peak_allocated_bytes": max(r["peak_bytes"] for r in runs)}
+
+    k4_direct = summary(runs4k["direct"], "direct_cg")
+    k4_stencil = summary(runs4k["stencil"], "stencil_cg")
+    print(f"[{label}] 4K 2176x3840 n=8 sf=2, each solve twice with equal "
+          "energies: " + "; ".join(
+              f"{op} {s['outer_iterations']} outer iterations, "
+              + " / ".join(f"{t:.3f}" for t in s["ms_per_outer_iteration"])
+              + f" ms/outer-iter, peak allocated "
+              f"{s['peak_allocated_bytes'] / 2**30:.3f} GiB"
+              for op, s in (("direct", k4_direct), ("stencil", k4_stencil))),
+          flush=True)
+    direct_launches["direct"]["4k"] = dict(k4_direct, stencil=k4_stencil)
 
     print(json.dumps({"kernels": [entry, cgs_entry, scaled_entry, pcg_entry,
-                                  big_entry]}))
+                                  big_entry]
+                      + direct_entries(direct, direct_launches)}))
     print(label)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,14 @@ values as ``srmeetsps_cuda_tpu.config`` (a test holds the two together):
 - depth data weight lambda = 1 (devicecalls.cu:644);
 - preprocessing: inpaint radius 16, bilateral sigma 2/2 (SRPS.cu:133,139).
 
-The TPU-only switches of the JAX config (Pallas routing, VMEM residency)
-have no counterpart: on a CUDA device the depth CG always runs a
-hand-written kernel (the stencil CG with the energy tracked inside it, the
-JAX default kernel_energy, plain or Jacobi-preconditioned, or the
-Chronopoulos-Gear CG), on the CPU its plain PyTorch version. The bf16 image stack is not ported yet.
+On a CUDA device the depth CG always runs a hand-written kernel, on the
+CPU its plain PyTorch version. ``cg_operator`` stands for the JAX config's
+Pallas routing switches (``pallas_vmem_resident``, ``pallas_fused_loop``):
+the default is the stencil CG with the energy tracked inside it, the JAX
+default path; ``"direct"`` and ``"direct_host_r0"`` run the direct
+mask-gated matvec CG of the JAX package's streaming and two-call routes.
+VMEM residency itself has no counterpart (the H100 has no residency gate),
+and ``use_pallas`` none either. The bf16 image stack is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +45,18 @@ class SolverConfig:
     # "pipe" = standard CG (csrc/stencil_cg.cu); "cgs" = Chronopoulos-Gear
     # CG, one sweep and one reduction per iteration (csrc/cgs_cg.cu).
     cg_variant: str = "pipe"
+    # How the depth CG applies M (models/srps.py::depth_cg):
+    # "stencil" = the 9-plane stencil CG (csrc/stencil_cg.cu), the JAX
+    #   default on grids it holds resident;
+    # "direct" = the direct mask-gated matvec CG with r0 built in the kernel
+    #   and the energy tracked (csrc/direct_cg.cu), the JAX route under
+    #   pallas_vmem_resident=False and on grids too large to hold resident
+    #   (bench.py's 4K); with cg_variant="cgs" and no Jacobi the CGS kernel
+    #   runs, as in the JAX package;
+    # "direct_host_r0" = the same CG given r0 = rhs - M z built by torch ops,
+    #   the energy evaluated at the result: pallas_fused_loop=False (and the
+    #   single-buffer kernel of cg_pallas_fused).
+    cg_operator: str = "stencil"
 
 
 @dataclasses.dataclass(frozen=True)

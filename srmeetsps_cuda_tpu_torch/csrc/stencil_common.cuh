@@ -1,4 +1,5 @@
-// Device helpers shared by the depth-CG kernels (stencil_cg.cu, cgs_cg.cu).
+// Device helpers shared by the depth-CG kernels (stencil_cg.cu, cgs_cg.cu,
+// direct_cg.cu).
 //
 // Layout of every plane: unpadded (h, w) row-major f32; a problem stack
 // holds B lanes of such planes back to back, and a kernel's blockIdx.z is
@@ -155,6 +156,33 @@ __device__ __forceinline__ float rhs_at(const float* __restrict__ F,
                     ay[o] * qb2[o] + by[o] * qb2[o] -
                     at(by, i + 1, j, h, w) * at(qb2, i + 1, j, h, w);
   return R0[R_Z0T * hw + o] + lam * (dxq + dyq - R0[R_QB3 * hw + o]);
+}
+
+// The depth energy of pixel o = (i, j) at x in residual form (_e0_band),
+// without lam * sum B^2 (the caller adds it): the data term's P/QB-weighted
+// quadratics of (Dx x, Dy x, x) and the KT term against the Z0U planes
+// [up(masks), up(masks * z0s)]. X reads x (0 outside the image); ts is the
+// sum of x over the aligned sf x sf tile holding (i, j).
+template <typename Get>
+__device__ __forceinline__ float energy_at(
+    const float* __restrict__ F, const float* __restrict__ R0,
+    const float* __restrict__ Z0U, size_t hw, size_t o, int i, int j,
+    int sf, float lam, Get X, float ts) {
+  const float xc = X(i, j);
+  const float ax = F[F_AX * hw + o], bx = F[F_BX * hw + o];
+  const float ay = F[F_AY * hw + o], by = F[F_BY * hw + o];
+  const float g = ax * (X(i, j + 1) - xc) + bx * (xc - X(i, j - 1));
+  const float hh = ay * (X(i + 1, j) - xc) + by * (xc - X(i - 1, j));
+  const float quad =
+      F[F_P11 * hw + o] * g * g + F[F_P22 * hw + o] * hh * hh +
+      F[F_P33 * hw + o] * xc * xc +
+      2.0f * (F[F_P12 * hw + o] * g * hh - F[F_P13 * hw + o] * g * xc -
+              F[F_P23 * hw + o] * hh * xc);
+  const float lin = R0[R_QB1 * hw + o] * g + R0[R_QB2 * hw + o] * hh -
+                    R0[R_QB3 * hw + o] * xc;
+  const float inv = 1.0f / (float)(sf * sf);
+  const float rkt = Z0U[o] * (ts * inv) - Z0U[hw + o];
+  return rkt * rkt * inv + lam * (quad - 2.0f * lin);
 }
 
 // Sum over the block in a fixed tree order; the result is valid in thread 0.

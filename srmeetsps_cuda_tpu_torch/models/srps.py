@@ -13,8 +13,9 @@ devicecalls.cu). The structure is the JAX package's:
   onto six per-pixel Gram fields ``P..`` and the rhs onto ``QB1..3``; the
   CG then runs on the 9-point stencil form of ``M = KT^T KT + lam A^T A``
   (``solve/stencil_cg.py``, or ``solve/cgs_cg.py`` for the
-  Chronopoulos-Gear variant): the hand-written CUDA kernel on a CUDA
-  device, its plain PyTorch version on the CPU.
+  Chronopoulos-Gear variant), or with ``cg_operator`` set on the direct
+  mask-gated matvec (``solve/direct_cg.py``): the hand-written CUDA kernel
+  on a CUDA device, its plain PyTorch version on the CPU.
 
 State lives on dense ``(h, w)`` grids zeroed outside the mask. Contractions
 run in full float32 (``device.set_precision``), as the JAX package's
@@ -35,8 +36,13 @@ from ..ops import grid as gridops
 from ..ops.gradients import GradientMasks
 from ..ops.normals import normals_from_depth
 from ..solve.cgs_cg import cgs_cg
+from ..solve.direct_cg import direct_cg
 from ..solve.stencil_cg import (depth_rhs_fields, energy_planes, make_ktw,
                                 stencil_cg)
+
+# SolverConfig.cg_operator values: how the depth CG applies M.
+CG_OPERATORS = ("stencil", "direct", "direct_host_r0")
+
 
 class SRPSProblem(NamedTuple):
     """Static problem data. I (c, n, h*w) channel-major and pixel-flat;
@@ -410,21 +416,32 @@ def depth_cg(z, op: DepthOperator, prob: SRPSProblem, sf: int,
              cfg: SolverConfig, block=(256, 4), lanes=None):
     """The warm-started depth CG from ``z`` on ``op`` and its energy, for
     one problem, or for B lane-stacked ones in one launch with ``lanes``
-    their per-lane ``(op, prob)`` pairs.
+    their per-lane ``(op, prob)`` pairs. Each kernel runs as its CUDA
+    version for a CUDA ``z`` and its plain version for a CPU one; Jacobi
+    preconditioning passes ``invd = 1 / diag(M)`` (srps.py:543-548 of the
+    JAX package). The routes, by ``cfg.cg_operator``:
 
-    Plain CG runs :func:`stencil_cg` — the CUDA kernel for a CUDA ``z``,
-    its plain version for a CPU one — with the energy tracked inside the
-    CG; ``cg_variant="cgs"`` runs :func:`cgs_cg` the same way and evaluates
-    the energy at its result (srps.py:615-617 of the JAX package). Jacobi
-    preconditioning passes ``invd = 1 / diag(M)`` to :func:`stencil_cg`
-    (srps.py:543-548), in its scaled form at sf <= 2 and its in-sweep PCG
-    form at sf = 4. The CGS recurrence has no Jacobi form: with
-    ``cg_variant="cgs"`` Jacobi runs the same preconditioned stencil CG and
-    evaluates the energy at its result, where the JAX package runs its jnp
-    PCG (srps.py:595-617). Returns ``(z_new, energy, cg_iterations)`` as
-    device tensors, the scalars one per lane."""
+    * ``"stencil"``: plain CG runs :func:`stencil_cg` with the energy
+      tracked inside the CG, Jacobi in its scaled form at sf <= 2 and its
+      in-sweep PCG form at sf = 4; ``cg_variant="cgs"`` runs :func:`cgs_cg`
+      and evaluates the energy at its result (srps.py:615-617). The CGS
+      recurrence has no Jacobi form: with ``cg_variant="cgs"`` Jacobi runs
+      the preconditioned stencil CG and evaluates the energy at its result,
+      where the JAX package runs its jnp PCG (srps.py:595-617).
+    * ``"direct"``: :func:`direct_cg` with r0 built in the kernel and the
+      energy tracked (srps.py:550-554, 574-586); Jacobi is its in-sweep PCG.
+      ``cg_variant="cgs"`` without Jacobi runs :func:`cgs_cg`, as the JAX
+      CGS branch comes before residency (srps.py:567-568).
+    * ``"direct_host_r0"``: ``b = rhs - M z`` by torch ops, then
+      :func:`direct_cg` given ``b`` (with Jacobi, its PCG), the energy
+      evaluated at the result (srps.py:587-608), whatever the variant.
+
+    Returns ``(z_new, energy, cg_iterations)`` as device tensors, the
+    scalars one per lane."""
     if cfg.cg_variant not in ("pipe", "cgs"):
         raise ValueError(f"unknown cg_variant {cfg.cg_variant!r}")
+    if cfg.cg_operator not in CG_OPERATORS:
+        raise ValueError(f"unknown cg_operator {cfg.cg_operator!r}")
     lam = cfg.lam
 
     def each(fn, t):
@@ -433,19 +450,30 @@ def depth_cg(z, op: DepthOperator, prob: SRPSProblem, sf: int,
             return fn(op, prob, t)
         return torch.stack([fn(o, p, t[b]) for b, (o, p) in enumerate(lanes)])
 
-    if cfg.cg_variant == "cgs" and not cfg.jacobi_preconditioner:
-        x, iters, _ = cgs_cg(z, op, prob.gm, prob.ktw, prob.z0t, sf=sf,
-                             lam=lam, tol=cfg.cg_tol,
-                             max_iter=cfg.cg_max_iter, block=block)
+    kw = dict(sf=sf, lam=lam, tol=cfg.cg_tol, max_iter=cfg.cg_max_iter,
+              block=block)
+    invd = None
+    if cfg.jacobi_preconditioner:
+        invd = 1.0 / each(lambda o, p, _: depth_diag(o, p, sf, lam), z)
+    e_part = None
+    if cfg.cg_operator == "direct_host_r0":
+        b = each(lambda o, p, zb: depth_rhs(o, p, sf, lam)
+                 - depth_matvec(zb, o, p, sf, lam), z)
+        x, iters, _, _ = direct_cg(z, op, prob.gm, prob.ktw, prob.z0t,
+                                   prob.z0u, invd=invd, b=b, **kw)
+    elif cfg.cg_variant == "cgs" and invd is None:
+        x, iters, _ = cgs_cg(z, op, prob.gm, prob.ktw, prob.z0t, **kw)
+    elif cfg.cg_operator == "direct":
+        x, iters, _, e_part = direct_cg(z, op, prob.gm, prob.ktw, prob.z0t,
+                                        prob.z0u, invd=invd,
+                                        with_energy=True, **kw)
     else:
-        invd = None
-        if cfg.jacobi_preconditioner:
-            invd = 1.0 / each(lambda o, p, _: depth_diag(o, p, sf, lam), z)
-        x, iters, _, e_part = stencil_cg(
-            z, op, prob.gm, prob.ktw, prob.z0t, prob.z0u, sf=sf, lam=lam,
-            tol=cfg.cg_tol, max_iter=cfg.cg_max_iter, block=block, invd=invd)
+        x, iters, _, e_part = stencil_cg(z, op, prob.gm, prob.ktw, prob.z0t,
+                                         prob.z0u, invd=invd, **kw)
+        if cfg.cg_variant == "cgs":
+            e_part = None
     z_new = x * prob.mask
-    if cfg.cg_variant == "cgs":
+    if e_part is None:
         energy = each(lambda o, p, zb: depth_energy(zb, o, p, sf, lam), z_new)
     else:
         energy = e_part + lam * op.const

@@ -66,8 +66,9 @@ from ..ops.grid import box_upsample_adjoint, tilesum
 from .cg import tol_squared
 
 N_STENCIL = 9
-# Device scalar slots written by the kernels (csrc/stencil_cg.cu): r1 is
-# the dot that drives alpha and beta, rr the reported residual.
+# Device scalar slots of the standard-CG kernels (csrc/std_cg.cuh, shared
+# by stencil_cg.cu and direct_cg.cu): r1 is the dot that drives alpha and
+# beta, rr the reported residual.
 S_R1, S_E, S_ITERS, S_RR = 1, 5, 7, 9
 N_SCAL = 10
 # Rows of per-block partial sums per lane.
@@ -222,34 +223,23 @@ def scale_c_planes(C: torch.Tensor, invd: torch.Tensor) -> torch.Tensor:
                        dim=-3)
 
 
-def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
-                     tol: float = 1e-9, max_iter: int = 100,
-                     planes: bool = False, invd=None):
-    """Plain PyTorch version of the kernel, on ``(h, w)`` planes or
-    ``(B, h, w)`` lanes (every input with the same leading axis). ``invd``
-    turns on Jacobi preconditioning in the form :func:`jacobi_form` picks.
-    Returns ``(x, iters, r1, e_part)`` (and the C planes with
-    ``planes=True``, C' in the scaled form) as device tensors, the scalars
-    one per lane; an ``active`` flag per lane on the device replaces the
-    early exit, so nothing is read back to the host."""
-    form = None if invd is None else jacobi_form(sf)
-    pcg = form == "pcg"
-    C = build_c_planes(op, gm, ktw, lam, sf)
+def cg_loop(x, r, matvec, *, tol: float, max_iter: int, invd=None, e=None):
+    """The reference's standard CG of every depth-CG kernel from the iterate
+    ``x`` and its residual ``r`` (per lane): beta = 0 at k = 1, guarded
+    divisions, stop when ``<r, r> <= tol^2`` or after ``max_iter + 1``
+    iterations. With ``invd`` it is the in-sweep Jacobi PCG: ``p = invd r +
+    beta p``, ``rz = sum r^2 invd`` drives alpha and beta. A tracked energy
+    ``e`` takes ``E -= alpha * r1`` (r1 = rz under Jacobi). An ``active``
+    flag per lane on the device replaces the early exit, so nothing is read
+    back to the host. Returns ``(x, iters, rr, r, e)``."""
+    pcg = invd is not None
     tol_sq = tol_squared(tol)
-    x = x0
-    r = depth_rhs_fields(op, gm, z0t, lam) - stencil_matvec(C, x0, ktw, sf)
-    e = warm_start_energy(x0, op, gm, z0u, lam, sf)
-    if form == "scaled":
-        s = torch.sqrt(invd)
-        C = scale_c_planes(C, invd)
-        r = s * r
-        x = torch.zeros_like(x0)
     rr = lane_dot(r, r)
     r1 = lane_dot(r * r, invd) if pcg else rr
     r0 = torch.zeros_like(r1)
-    p = torch.zeros_like(x0)
-    active = torch.ones(r1.shape, dtype=torch.bool, device=x0.device)
-    iters = torch.zeros(r1.shape, dtype=torch.int32, device=x0.device)
+    p = torch.zeros_like(x)
+    active = torch.ones(r1.shape, dtype=torch.bool, device=x.device)
+    iters = torch.zeros(r1.shape, dtype=torch.int32, device=x.device)
     for k in range(1, max_iter + 2):
         active = active & (rr > tol_sq)
         iters = iters + active.to(torch.int32)
@@ -258,10 +248,11 @@ def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
         else:
             beta = r1 / torch.where(r0 == 0, torch.ones_like(r0), r0)
         p_new = (invd * r if pcg else r) + per_pixel(beta) * p
-        w = stencil_matvec(C, p_new, ktw, sf)
+        w = matvec(p_new)
         pw = lane_dot(p_new, w)
         alpha = r1 / torch.where(pw == 0, torch.ones_like(pw), pw)
-        e = torch.where(active, e - alpha * r1, e)
+        if e is not None:
+            e = torch.where(active, e - alpha * r1, e)
         on = per_pixel(active)
         x = torch.where(on, x + per_pixel(alpha) * p_new, x)
         r_new = r - per_pixel(alpha) * w
@@ -272,6 +263,32 @@ def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
         r0 = torch.where(active, r1, r0)
         r1 = torch.where(active, r1_new, r1)
         rr = torch.where(active, rr_new, rr)
+    return x, iters, rr, r, e
+
+
+def stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
+                     tol: float = 1e-9, max_iter: int = 100,
+                     planes: bool = False, invd=None):
+    """Plain PyTorch version of the kernel, on ``(h, w)`` planes or
+    ``(B, h, w)`` lanes (every input with the same leading axis). ``invd``
+    turns on Jacobi preconditioning in the form :func:`jacobi_form` picks.
+    Returns ``(x, iters, r1, e_part)`` (and the C planes with
+    ``planes=True``, C' in the scaled form) as device tensors, the scalars
+    one per lane (:func:`cg_loop`)."""
+    form = None if invd is None else jacobi_form(sf)
+    pcg = form == "pcg"
+    C = build_c_planes(op, gm, ktw, lam, sf)
+    x = x0
+    r = depth_rhs_fields(op, gm, z0t, lam) - stencil_matvec(C, x0, ktw, sf)
+    e = warm_start_energy(x0, op, gm, z0u, lam, sf)
+    if form == "scaled":
+        s = torch.sqrt(invd)
+        C = scale_c_planes(C, invd)
+        r = s * r
+        x = torch.zeros_like(x0)
+    x, iters, rr, r, e = cg_loop(
+        x, r, lambda v: stencil_matvec(C, v, ktw, sf), tol=tol,
+        max_iter=max_iter, invd=invd if pcg else None, e=e)
     if form == "scaled":
         x = x0 + s * x
         rr = torch.sum(torch.where(invd > 0, r * r / invd,
@@ -306,12 +323,13 @@ def check_tensor(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def pack_lanes(kernel: str, x0, op, gm, ktw, z0t, *, sf: int, max_iter: int,
-               block, invd=None):
+               block, invd=None, r0: bool = True):
     """Check the inputs of a CUDA launch over the lanes of ``x0`` (B, h, w)
     (and ``invd`` where given) and stack the packs every depth-CG kernel
     reads: F (B, 11, h, w) = [P11..P33, fwd_x, bwd_x, fwd_y, bwd_y, ktw]
-    and R0 (B, 4, h, w) = [QB1, QB2, QB3, z0t]. Returns ``(F, R0, (bx, by),
-    blocks per lane)``."""
+    and R0 (B, 4, h, w) = [QB1, QB2, QB3, z0t] (None with ``r0=False``, for
+    a kernel given its residual). Returns ``(F, R0, (bx, by), blocks per
+    lane)``."""
     if x0.device.type != "cuda":
         raise ValueError(f"{kernel} runs on cpu or cuda, not {x0.device}")
     if x0.dim() != 3:
@@ -336,7 +354,7 @@ def pack_lanes(kernel: str, x0, op, gm, ktw, z0t, *, sf: int, max_iter: int,
     for name, t in fields.items():
         check_tensor(name, t, (B, h, w), x0.device)
     F = torch.stack([fields[k] for k in F_ROWS], dim=1)
-    R0 = torch.stack([op.QB1, op.QB2, op.QB3, z0t], dim=1)
+    R0 = torch.stack([op.QB1, op.QB2, op.QB3, z0t], dim=1) if r0 else None
     return F, R0, (bx, by), (-(-w // bx)) * (-(-h // by))
 
 

@@ -40,6 +40,10 @@ def test_config_defaults_match_jax():
         mine = dataclasses.asdict(ours)
         ref = dataclasses.asdict(theirs)
         ref["cg_variant"] = ref.get("pallas_cg_variant")
+        # cg_operator stands for the JAX routing switches: resident kernels
+        # with the fused loop (their defaults) are the stencil route.
+        ref["cg_operator"] = ("stencil" if ref.get("pallas_vmem_resident")
+                              and ref.get("pallas_fused_loop") else "direct")
         for k, v in mine.items():
             assert ref[k] == v, k
 
