@@ -73,7 +73,20 @@ falls back to the CPU or to a plain version):
 4i. bench.py's 4K configuration (2176 x 3840, sf = 2, n = 8, c = 3) through
    ``runtime.solver.solve`` with ``"direct"`` and with ``"stencil"``, in
    turns: a finite depth, the stopping rule, outer iterations, ms per
-   outer iteration and the peak of allocated device memory.
+   outer iteration and the peak of allocated device memory;
+3g. the row-shard kernels (``csrc/shard_cg.cu``) on 4 shards of the card
+   against their plain versions on the same shards, on phase 3's grids and
+   at 1088 x 1920 sf = 2, in the standard, CGS and Jacobi forms, from the
+   warm and a cold start at two thread-block shapes (``cg_vs_plain``'s
+   bounds, iteration counts equal); the 4-shard CG against the unsharded
+   kernel of the same recurrence; ms per CG iteration of kernel and plain;
+4j. BASELINE.md configuration 5 (1088 x 1920, n = 20, c = 3, sf = 2)
+   through ``parallel.sharded.solve_fused_sharded`` on 4 shards of the
+   card in the three forms: the stopping rule, at most one outer iteration
+   from phase 4g's unsharded run and energies within phase 3's bound of it
+   (Jacobi: printed, held to the drift bound), a repeated solve bit-equal,
+   every depth CG through the shard kernels; then ``--sharded 4`` through
+   the CLI on the phase-4 file (one shard per card present).
 
 The line before the last but one is a JSON object with one entry per
 kernel and mode (its times per CG iteration at the main path's shapes, and
@@ -164,6 +177,23 @@ DIRECT_FORMS = {
 
 # The TPU kernels each form of the direct CG stands for (file:line of the
 # kernel function), the first the one it is named by.
+# The row-shard CG (csrc/shard_cg.cu) per form: the prologue without the
+# energy (C planes ~70, rhs ~15, M x0 17, a dot; Jacobi rz), the iteration
+# as the unsharded kernel's; planes read once and written once: F (11), R0
+# (4), x0 in, x out, invd under Jacobi; streamed per iteration as the
+# unsharded kernels (19, Jacobi 21).
+SHARD_FORMS = {
+    # form: (flops, planes, stream planes)
+    "std": ({"prologue": 105, "iteration": 27}, 17, 19),
+    "cgs": ({"prologue": 125, "iteration": 29}, 17, 19),
+    "jacobi": ({"prologue": 107, "iteration": 30}, 18, 21),
+}
+SHARD_REPLACES = "srmeetsps_cuda_tpu/parallel/shard_pallas.py:"
+# Relative gap of the 4-shard CG to the unsharded kernel allowed for the
+# Jacobi form at sf <= 2, where the unsharded kernel runs the scaled form
+# (ROADMAP Queue 3's unconverged-drift bound).
+DRIFT = 3e-2
+
 DIRECT_REPLACES = {
     "direct": ("pallas_cg_vmem.py:961", "pallas_cg_vmem.py:1148",
                "pallas_cg_pipe.py:80"),
@@ -670,6 +700,203 @@ def direct_vs_stencil(label, grids):
               "bound: " + "; ".join(out), flush=True)
 
 
+def shard_call(form, ln, mesh, x0=None, plain=False, **kw):
+    """``(x, iterations, residual)`` of the row-shard CG in ``form`` on the
+    lane inputs ``ln`` = (x0, op, gm, ktw, z0t, z0u, invd) over ``mesh``:
+    the shard kernels, or with ``plain`` their plain versions."""
+    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
+
+    x0 = ln[0] if x0 is None else x0
+    args = (ln[1], ln[2], ln[3], ln[4])
+    if form == "jacobi":
+        return scg.cg_sharded_jacobi(mesh, x0, ln[6], *args, plain=plain,
+                                     **kw)
+    fn = scg.cg_sharded_cgs if form == "cgs" else scg.cg_sharded
+    return fn(mesh, x0, *args, plain=plain, **kw)
+
+
+def unsharded_call(form, ln, x0, **kw):
+    """``(x, iterations, residual)`` of the unsharded kernel that runs the
+    same recurrence: stencil_cg (its Jacobi form: scaled at sf <= 2, PCG at
+    sf 4) or cgs_cg."""
+    from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+
+    if form == "cgs":
+        return cg.cgs_cg(x0, *ln[1:5], **kw)
+    invd = ln[6] if form == "jacobi" else None
+    return sc.stencil_cg(x0, *ln[1:6], invd=invd, **kw)[:3]
+
+
+def shard_vs_plain(label, grids, timed, shards=4):
+    """Phase 3g on ``grids``: ``(h, w, sf) -> (lanes, stacked)``. For each
+    form of the row-shard CG on ``shards`` shards of the card and 2 seeds,
+    from the warm start and a cold start x0 = 0, at two thread-block
+    shapes: the kernels against their plain versions on the same shards
+    (iteration counts equal, the update x - x0 and the residual after 2 and
+    12 iterations within UPD_BOUND / RES_BOUND, each shard's launches
+    counted), a repeated run bit-equal, and the sharded kernels against the
+    unsharded kernel of the same recurrence after 2 iterations (the Jacobi
+    form at sf <= 2, where that kernel runs the scaled form, within DRIFT
+    or the bound of its start, whichever is larger).
+    On the grids in ``timed``, ms per CG iteration of kernel and plain at
+    cap 100 and of one prologue with one iteration. Returns {form: {grid:
+    entry}}."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
+    from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
+
+    mesh = scg.make_mesh_1d(shards, "cuda")
+    counters = {"std": (sk.step_a, "launches"),
+                "cgs": (sk.cgs_step, "launches"),
+                "jacobi": (sk.step_b, "jacobi_launches")}
+    out = {form: {} for form in SHARD_FORMS}
+    for (h, w, sf), (lanes, _) in grids.items():
+        for form in SHARD_FORMS:
+            obj, attr = counters[form]
+            gaps, vs_one = {}, []
+            for seed, ln in enumerate(lanes[:2]):
+                for start, cap in itertools.product(("warm", "cold"),
+                                                    (2, 12)):
+                    x0 = ln[0] if start == "warm" else torch.zeros_like(ln[0])
+                    px, pk, pr = shard_call(form, ln, mesh, x0, plain=True,
+                                            sf=sf, lam=1.0, max_iter=cap)
+                    for block in ((256, 4), (32, 16)):
+                        where = (f"shard_cg {form} {h}x{w} sf={sf} seed "
+                                 f"{seed} {start} cap {cap} block {block}")
+                        before = getattr(obj, attr)
+                        x, k, r = shard_call(form, ln, mesh, x0, sf=sf,
+                                             lam=1.0, max_iter=cap,
+                                             block=block)
+                        torch.cuda.synchronize()
+                        if getattr(obj, attr) != before + shards * (cap + 1):
+                            raise AssertionError(f"{where}: launches not "
+                                                 "counted on every shard")
+                        if int(k) != int(pk):
+                            raise AssertionError(
+                                f"{where}: iterations kernel {int(k)}, plain "
+                                f"{int(pk)}")
+                        if not bool(torch.isfinite(x).all()):
+                            raise AssertionError(f"{where}: x is not finite")
+                        upd = rel_rms(x - x0, px - x0)
+                        gap = abs(float(r) - float(pr)) / abs(float(pr))
+                        old = gaps.get((start, cap), (0.0, 0.0))
+                        gaps[start, cap] = (max(old[0], upd),
+                                            max(old[1], gap))
+                        if (seed, start, cap, block) == (0, "warm", 2,
+                                                         (256, 4)):
+                            max_dx = float((x - px).abs().max())
+                        if (upd > UPD_BOUND[start][cap]
+                                or gap > RES_BOUND[start][cap]):
+                            raise AssertionError(
+                                f"{where}: relative RMS of the update "
+                                f"{upd:.3e}, relative gap of the residual "
+                                f"{gap:.3e}")
+                    if seed == 0 and cap == 2:
+                        x1, _, r1 = unsharded_call(form, ln, x0, sf=sf,
+                                                   lam=1.0, max_iter=cap)
+                        upd = rel_rms(x - x0, x1 - x0)
+                        gap = abs(float(r) - float(r1)) / abs(float(r1))
+                        drift = form == "jacobi" and sf <= 2
+                        vs_one.append(f"{start} {upd:.2e} / {gap:.2e}")
+                        # The scaled form rounds otherwise: no bound
+                        # tighter than DRIFT (a warm start's update is
+                        # swamped by x0 either way).
+                        u_max, r_max = (UPD_BOUND[start][cap],
+                                        RES_BOUND[start][cap])
+                        if drift:
+                            u_max, r_max = max(u_max, DRIFT), max(r_max, DRIFT)
+                        if upd > u_max or gap > r_max:
+                            raise AssertionError(
+                                f"{where}: against the unsharded kernel, "
+                                f"update {upd:.3e}, residual {gap:.3e}")
+            a = shard_call(form, lanes[0], mesh, sf=sf, lam=1.0, max_iter=12)
+            b = shard_call(form, lanes[0], mesh, sf=sf, lam=1.0, max_iter=12)
+            if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                raise AssertionError(f"shard_cg {form} {h}x{w} sf={sf}: a "
+                                     "repeated run differs")
+            entry = {"update_rel_rms": gaps["warm", 2][0],
+                     "residual_rel_gap": gaps["warm", 2][1],
+                     "max_abs_err": max_dx}
+            timing = ""
+            if (h, w, sf) in timed:
+                ln, cap = lanes[0], 100
+                run = lambda plain, c=cap: shard_call(  # noqa: E731
+                    form, ln, mesh, plain=plain, sf=sf, lam=1.0, max_iter=c)
+                t_k1, t_p1, t_p2, t_k2 = (
+                    cuda_ms(lambda: run(False), 2), cuda_ms(lambda: run(True), 1),
+                    cuda_ms(lambda: run(True), 1), cuda_ms(lambda: run(False), 2))
+                n_it = int(run(False)[1])
+                flops, planes, stream = SHARD_FORMS[form]
+                b_ms, b_by, s_ms = bound(h * w, 1, n_it, planes, flops, sf,
+                                         stream, per=cap + 1)
+                entry.update(ms=(t_k1 + t_k2) / 2 / (cap + 1),
+                             plain_ms=(t_p1 + t_p2) / 2 / (cap + 1),
+                             bound_ms=b_ms, bound_by=b_by,
+                             stream_bound_ms=s_ms, cg_iterations=n_it,
+                             unit=f"per CG iteration of the {shards}-shard "
+                                  f"CG, {h}x{w} sf {sf}, {cap + 1} launched")
+                timing = (f"; kernel {entry['ms']:.4f} ms/CG-iter, plain "
+                          f"{entry['plain_ms']:.4f}, bound {b_ms:.5f} "
+                          f"({b_by}), stream bound {s_ms:.4f}")
+                if form != "cgs":
+                    t_k = cuda_ms(lambda: run(False, 0), 3)
+                    t_p = cuda_ms(lambda: run(True, 0), 2)
+                    p_ms, p_by, _ = bound(h * w, 1, 1, planes, flops, sf,
+                                          stream)
+                    entry["prologue"] = {
+                        "ms": t_k, "plain_ms": t_p, "bound_ms": p_ms,
+                        "bound_by": p_by,
+                        "unit": f"one prologue and one CG iteration on "
+                                f"{shards} shards, {h}x{w} sf {sf}"}
+                    timing += (f"; prologue + 1 iteration {t_k:.4f} ms, "
+                               f"plain {t_p:.4f}")
+            out[form][h, w, sf] = entry
+            print(f"[{label}] shard_cg {form} {shards} shards {h}x{w} "
+                  f"sf={sf}: iterations equal; relative RMS of the update / "
+                  "relative gap of the residual, worst of 2 seeds and "
+                  "blocks 256x4, 32x16: " + "; ".join(
+                      f"{st} cap {c} {u:.2e} / {g:.2e}"
+                      for (st, c), (u, g) in gaps.items())
+                  + f"; max|dx| warm cap 2 {max_dx:.3e}; repeat bit-equal; "
+                  "vs the unsharded kernel at cap 2: " + ", ".join(vs_one)
+                  + timing, flush=True)
+    return out
+
+
+def shard_entries(per_form, launches, grid, others):
+    """The ``kernels`` line's entries of the row-shard kernels, one per TPU
+    kernel: the figures of ``grid`` (those of ``others`` under ``grids``)
+    of the form that runs the kernel, and the launches of phase 4j's runs,
+    ``launches[form]``."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
+            "cg_iterations", "update_rel_rms", "residual_rel_gap")
+    rows = (("shard_cg prologue", "std", 124),
+            ("shard_cg cgs_sweep", "cgs", 249),
+            ("shard_cg sweep_a", "std", 375),
+            ("shard_cg sweep_b", "std", 440),
+            ("shard_cg sweep_b jacobi", "jacobi", 495))
+    out = []
+    for name, form, line in rows:
+        src = per_form[form][grid]
+        figures = src["prologue"] if name.endswith("prologue") else src
+        entry = {"name": name, "route": "cuda",
+                 "source": "srmeetsps_cuda_tpu_torch/csrc/shard_cg.cu",
+                 "replaces": f"{SHARD_REPLACES}{line}",
+                 "launches": launches[form][name], "library_ms": None,
+                 "max_abs_err": src["max_abs_err"], "form": form}
+        entry.update({k: figures[k] for k in keys + ("unit",)
+                      if k in figures})
+        entry["grids"] = {f"{h}x{w} sf {sf}": {
+            k: v for k, v in (per_form[form][h, w, sf]["prologue"]
+                              if name.endswith("prologue")
+                              else per_form[form][h, w, sf]).items()
+            if k in keys} for (h, w, sf) in others}
+        out.append(entry)
+    return out
+
+
 def stop_rule_held(energies, tol, max_iterations) -> bool:
     """The reference's rule (SRPS.cu:297-301): no earlier iteration met it,
     the last one did."""
@@ -716,17 +943,25 @@ def kernel_counters():
     ``stencil_cg`` counts every run of the stencil CG kernels, ``stencil_cg
     jacobi`` those in a Jacobi form; ``direct_cg`` every run of the direct
     CG kernels, ``direct_cg jacobi`` those with invd and ``direct_cg
-    host_r0`` those given their residual."""
+    host_r0`` those given their residual; ``shard_cg ...`` the launches of
+    each row-shard kernel, one per shard."""
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
     from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+
+    from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
 
     return {"stencil_cg": (sc.stencil_cg, "launches"),
             "stencil_cg jacobi": (sc.stencil_cg, "jacobi_launches"),
             "cgs_cg": (cg.cgs_cg, "launches"),
             "direct_cg": (dc.direct_cg, "launches"),
             "direct_cg jacobi": (dc.direct_cg, "jacobi_launches"),
-            "direct_cg host_r0": (dc.direct_cg, "host_r0_launches")}
+            "direct_cg host_r0": (dc.direct_cg, "host_r0_launches"),
+            "shard_cg prologue": (sk.prologue, "launches"),
+            "shard_cg sweep_a": (sk.step_a, "launches"),
+            "shard_cg sweep_b": (sk.step_b, "launches"),
+            "shard_cg sweep_b jacobi": (sk.step_b, "jacobi_launches"),
+            "shard_cg cgs_sweep": (sk.cgs_step, "launches")}
 
 
 def reset_counts():
@@ -754,7 +989,21 @@ def expected_counts(n: int, cli_extra=(), operator: str = "stencil") -> dict:
             "cgs_cg": n if cgs else 0,
             "direct_cg": n if direct else 0,
             "direct_cg jacobi": n if direct and jacobi else 0,
-            "direct_cg host_r0": n if operator == "direct_host_r0" else 0}
+            "direct_cg host_r0": n if operator == "direct_host_r0" else 0,
+            **shard_counts(0, 0, 0, "std")}
+
+
+def shard_counts(n: int, shards: int, cap: int, form: str) -> dict:
+    """The row-shard kernels' counts of ``n`` sharded depth solves in
+    ``form`` on ``shards`` shards at ``cap``: a prologue per shard (CGS: and
+    its w0 launch) and cap + 1 sweeps per shard."""
+    it = n * shards * (cap + 1)
+    std = form != "cgs"
+    return {"shard_cg prologue": n * shards * (1 if std else 2),
+            "shard_cg sweep_a": it if std else 0,
+            "shard_cg sweep_b": it if std else 0,
+            "shard_cg sweep_b jacobi": it if form == "jacobi" else 0,
+            "shard_cg cgs_sweep": 0 if std else it}
 
 
 def cli_extra_of(cfg) -> tuple:
@@ -1048,6 +1297,145 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True):
             "launches": launches, "rmse": rmse, "peak_bytes": peak}
 
 
+def shard_form(cfg) -> str:
+    """The row-shard CG form a ``SolverConfig`` runs (estimate_depth_sharded):
+    Jacobi whatever the variant, else CGS or the standard CG."""
+    if cfg.jacobi_preconditioner:
+        return "jacobi"
+    return "cgs" if cfg.cg_variant == "cgs" else "std"
+
+
+def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
+    """Phase 4j: ``data`` through ``parallel.sharded.solve_fused_sharded``
+    on ``shards`` shards of the card with ``cfg``, twice, the launch counts
+    set to 0 just before each solve and read just after. Checks a finite
+    depth, the stopping rule, the repeat bit for bit, the launches (every
+    depth CG through the shard kernels, no other CG kernel) and, against
+    the unsharded run ``ref`` (energies) of the same file, at most one
+    outer iteration more or less and the energies within
+    ``energy_bound(ref[0], const)`` (Jacobi: within DRIFT of the first
+    energy, the unsharded run taking the scaled form). Returns the run as
+    main_path does."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
+    from srmeetsps_cuda_tpu_torch.parallel import sharded
+    from srmeetsps_cuda_tpu_torch.runtime.solver import prepare
+
+    dev = torch.device("cuda")
+    mesh = scg.make_mesh_1d(shards, dev)
+    form = shard_form(cfg)
+    h, w = data.mask.shape
+    what = f"sharded {form} {shards} shards {h}x{w} n={data.I.shape[0]}"
+    runs = []
+    for _ in range(2):
+        prob, st = prepare(data, cfg, dev)
+        cg_iters = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        final, trace = sharded.solve_fused_sharded(
+            st, prob, int(data.sf), cfg, mesh,
+            on_iteration=lambda s: cg_iters.append(s.cg_iters))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs.append((trace[:final.iteration].tolist(), dt, read_counts(),
+                     [int(c) for c in cg_iters], final.z))
+    energies, dt, launches, cg_iters, z = runs[0]
+    n_it = len(energies)
+    if runs[1][0] != energies or not torch.equal(runs[1][4], z):
+        raise AssertionError(f"{what}: a repeated solve gave {runs[1][0]}, "
+                             f"the first {energies}")
+    if not all(map(math.isfinite, energies)):
+        raise AssertionError(f"{what}: energies not finite: {energies}")
+    if not stop_rule_held(energies, cfg.tolerance, cfg.max_iterations):
+        raise AssertionError(f"{what}: stopping rule violated: {energies}")
+    want = dict(expected_counts(0),
+                **shard_counts(n_it, shards, cfg.cg_max_iter, form))
+    if launches != want:
+        raise AssertionError(f"{what}: kernel runs {launches}, expected "
+                             f"{want}")
+    cap = cfg.cg_max_iter + 1
+    if not all(c == cap or (form == "jacobi" and 0 < c < cap)
+               for c in cg_iters):
+        raise AssertionError(f"{what}: CG iterations {cg_iters} off the cap")
+    m = torch.as_tensor(data.mask) != 0
+    z = z.cpu()
+    if not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"{what}: final depth is not finite")
+    rmse = float((z[m] - torch.as_tensor(z_true)[m]).double().square()
+                 .mean().sqrt())
+    if abs(len(ref) - n_it) > 1:
+        raise AssertionError(f"{what}: {n_it} outer iterations, the "
+                             f"unsharded run {len(ref)}")
+    k = min(len(ref), n_it)
+    gap = max(abs(x - y) for x, y in zip(energies, ref))
+    if form == "jacobi":
+        # The unsharded run's scaled-form energies are quantised by the f32
+        # rounding of their constant (30.0, 30.0 at the end), as large as
+        # the late energies themselves: the gap is held on the scale of
+        # the first energy, as small_input_vs_cpu holds late energies.
+        rel = gap / abs(ref[0])
+        if rel > DRIFT:
+            raise AssertionError(f"{what}: energies {energies} vs the "
+                                 f"unsharded run's {ref}: max gap {rel:.3e} "
+                                 "of the first energy")
+        held = f"max gap {rel:.2e} of the first energy (bound {DRIFT})"
+    else:
+        check_close(f"{what} energies vs the unsharded run's (const "
+                    f"{const})", energies[:k], ref[:k], 0,
+                    energy_bound(ref[0], const))
+        held = f"phase 3's bound {energy_bound(ref[0], const):.3f}"
+    print(f"[{label}] {what}: {n_it} outer iterations, final energy "
+          f"{energies[-1]:.4f}, solve {dt:.4f} s ({1e3 * dt / n_it:.3f} "
+          f"ms/outer-iter; repeat {1e3 * runs[1][1] / n_it:.3f}), launches "
+          f"{ {k_: v for k_, v in launches.items() if v} }, CG iterations "
+          f"{cg_iters}, depth RMSE vs truth {rmse:.4f}; repeated solve "
+          f"bit-equal; the unsharded run: {len(ref)} outer iterations, "
+          f"energies max gap {gap:.4f}, {held}", flush=True)
+    print(f"[{label}] energy trace {energies}", flush=True)
+    return {"iterations": n_it, "energies": energies, "seconds": dt,
+            "launches": launches, "rmse": rmse}
+
+
+def cli_sharded(label, tmp, path, ref, const):
+    """Phase 4j: ``--sharded 4`` through the CLI on ``path``, one shard per
+    card present (at most 4): the metrics name the shard count, the
+    stopping rule and every depth CG through the shard kernels, energies
+    within phase 3's bound of the unsharded run ``ref``."""
+    import torch
+
+    shards = min(4, torch.cuda.device_count())
+    reset_counts()
+    recs, wall = run_cli(["--dsloc", path, "--sharded", "4"], tmp)
+    launches = read_counts()
+    summary = recs[-1]
+    energies = [r["energy"] for r in recs if "iteration" in r]
+    n_it = summary["iterations"]
+    if summary.get("devices") != shards or len(energies) != n_it:
+        raise AssertionError(f"--sharded 4: summary {summary}")
+    if not stop_rule_held(energies, 5e-3, 10):
+        raise AssertionError(f"--sharded 4: stopping rule violated: "
+                             f"{energies}")
+    want = dict(expected_counts(0), **shard_counts(n_it, shards, 100, "std"))
+    if launches != want:
+        raise AssertionError(f"--sharded 4: kernel runs {launches}, "
+                             f"expected {want}")
+    if abs(len(ref) - n_it) > 1:
+        raise AssertionError(f"--sharded 4: {n_it} outer iterations, "
+                             f"unsharded {len(ref)}")
+    k = min(len(ref), n_it)
+    check_close(f"--sharded 4 energies (const {const})", energies[:k],
+                ref[:k], 0, energy_bound(ref[0], const))
+    dt = summary["total_seconds"]
+    print(f"[{label}] CLI --sharded 4 on {shards} card(s): {n_it} outer "
+          f"iterations, solve {dt:.4f} s ({1e3 * dt / n_it:.3f} "
+          f"ms/outer-iter), CLI wall {wall:.3f} s, energies within phase "
+          f"3's bound of phase 4's (max gap "
+          f"{max(abs(x - y) for x, y in zip(energies, ref)):.4f})",
+          flush=True)
+
+
 def api_lanes(label, datas, cfg):
     """Phase 4h: ``datas`` (zero-padded to their common grid) through
     ``parallel.batched.solve_batch`` in both modes with ``cfg``: lockstep
@@ -1134,7 +1522,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    kernels = ["stencil_cg", "cgs_cg", "direct_cg"]
+    kernels = ["stencil_cg", "cgs_cg", "direct_cg", "shard_cg"]
     fresh = [k for k in kernels if not native.library_path(k).exists()]
     native.build_all(kernels)
     for k in kernels:
@@ -1157,12 +1545,16 @@ def main() -> int:
     phase3 = {g: shared[g] for g in grids}
     direct = {form: cg_vs_plain(label, phase3, form) for form in DIRECT_FORMS}
     direct_vs_stencil(label, phase3)
-    del shared, phase3
     big = (1088, 1920, 2)
+    big_lanes = {big: stacked_lanes(*big, range(2), dev)}
+    # 3g: the row-shard kernels on phase 3's grids and at 1088 x 1920.
+    shard = shard_vs_plain(label, {**phase3, **big_lanes},
+                           timed={big, (480, 640, 4)})
+    del shared, phase3
     big_entry = kernel_vs_plain(label, [big])[big]
     big_entry["name"] = "stencil_cg 1088x1920"
-    big_jac = cg_vs_plain(label, {big: stacked_lanes(*big, range(2), dev)},
-                          "jacobi")[big]
+    big_jac = cg_vs_plain(label, big_lanes, "jacobi")[big]
+    del big_lanes
     big_entry["jacobi"] = {k: big_jac[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "cg_iterations",
         "energy_abs_gap", "energy_gap_of_bound")}
@@ -1264,6 +1656,9 @@ def main() -> int:
         serve_path(label, [a], [(jac_a["iterations"], jac_a["energies"][-1])],
                    cli_extra=("--jacobi",))
 
+        # 4j (CLI): --sharded 4 on the phase-4 file.
+        cli_sharded(label, tmp, a, main["energies"], const)
+
         # 4g: BASELINE.md configuration 5, 1088 x 1920, n = 20, c = 3.
         for path in (a, b, c):
             os.remove(path)
@@ -1279,6 +1674,23 @@ def main() -> int:
         print(f"[{label}] 1088x1920 n=20: {per_it[0]:.3f} ms/outer-iter "
               f"standard, {per_it[1]:.3f} --jacobi, against "
               f"{per_it[2]:.3f} standard at 960x1280", flush=True)
+
+        # 4j: the same configuration on 4 row shards of the card, against
+        # 4g's unsharded runs.
+        _, e_const = solo_trace(e)
+        shard_runs = {}
+        for cfg, ref in ((SolverConfig(), big_std),
+                         (SolverConfig(cg_variant="cgs"), big_std),
+                         (SolverConfig(jacobi_preconditioner=True),
+                          big_jac_run)):
+            run = sharded_solve(label, e_data, e_true, cfg, ref["energies"],
+                                e_const)
+            shard_runs[shard_form(cfg)] = run
+        print(f"[{label}] 1088x1920 n=20 on 4 row shards: " + ", ".join(
+            f"{form} {1e3 * r['seconds'] / r['iterations']:.3f}"
+            for form, r in shard_runs.items())
+            + f" ms/outer-iter, against {per_it[0]:.3f} (standard) and "
+            f"{per_it[1]:.3f} (--jacobi) unsharded (4g)", flush=True)
         os.remove(e)
 
     # 4i: bench.py's 4K configuration, built in memory, in turns.
@@ -1323,7 +1735,11 @@ def main() -> int:
 
     print(json.dumps({"kernels": [entry, cgs_entry, scaled_entry, pcg_entry,
                                   big_entry]
-                      + direct_entries(direct, direct_launches)}))
+                      + direct_entries(direct, direct_launches)
+                      + shard_entries(
+                          shard, {f: r["launches"]
+                                  for f, r in shard_runs.items()},
+                          big, [(480, 640, 4)])}))
     print(label)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

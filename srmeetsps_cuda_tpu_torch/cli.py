@@ -9,8 +9,8 @@ surface (Main.cpp:9-44):
                              (Preferences 256 x 4, at most 1024 threads)
 
 plus the solver constants, ``--fast``, ``--fused``/``--stepwise``,
-``--cg-variant``, ``--batch-mode``, ``--serve``, dumps, ``--viz``,
-``--metrics-jsonl`` and ``--resume-from``. Without ``--cpu`` a
+``--cg-variant``, ``--batch-mode``, ``--serve``, ``--sharded``, dumps,
+``--viz``, ``--metrics-jsonl`` and ``--resume-from``. Without ``--cpu`` a
 CUDA device is required; ``--cpu`` runs the plain PyTorch versions of the
 kernels on the CPU. Options of the JAX CLI that are not ported yet exit
 with a message that names ROADMAP.md.
@@ -91,11 +91,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serving loop: one dataset location per stdin line "
                         "(a comma-separated line is a multi-object solve), "
                         "one JSON result line each; 'quit' or EOF stops")
+    p.add_argument("--sharded", type=int, default=0, metavar="N",
+                   help="row-sharded depth CG over N devices (at most the "
+                        "CUDA devices present; with --cpu, N CPU shards); "
+                        "the image height and its LR height must divide "
+                        "by N")
     # Surface of the JAX CLI that the port does not implement yet.
     p.add_argument("--show", action="store_true", help="not yet ported")
     p.add_argument("--dump-operators", action="store_true",
-                   help="not yet ported")
-    p.add_argument("--sharded", type=int, default=0, metavar="N",
                    help="not yet ported")
     p.add_argument("--image-dtype", choices=["float32", "bfloat16"],
                    default="float32", help="bfloat16 is not yet ported")
@@ -124,7 +127,6 @@ def main(argv=None) -> int:
         parser.print_help()
         return 0
     unported = [
-        ("--sharded", args.sharded),
         ("--show", args.show),
         ("--dump-operators", args.dump_operators),
         ("--image-dtype bfloat16", args.image_dtype != "float32"),
@@ -176,6 +178,8 @@ def main(argv=None) -> int:
     datas = [load(loc) for loc in locs]
     if len(datas) > 1:
         _run_batched(datas, locs, cfg, rt, device, prefs)
+    elif args.sharded:
+        _run_sharded(datas[0], cfg, args.sharded, rt, device, prefs)
     else:
         from .runtime.solver import solve
 
@@ -334,6 +338,45 @@ def _run_batched(datas, locs, cfg, rt, device, prefs):
         with open(rt.metrics_jsonl, "w") as f:
             for rec in metrics:
                 f.write(json.dumps(rec) + "\n")
+
+
+def _run_sharded(data, cfg, n_devices: int, rt, device, prefs):
+    """The fused solve with the row-sharded depth CG (JAX cli.py:401-445):
+    N = min(N, CUDA devices) distinct cards, or N CPU shards with --cpu;
+    the glue runs on the first."""
+    import torch
+
+    from .parallel.sharded import make_mesh_1d, solve_fused_sharded
+    from .runtime.solver import Timer, _write_outputs, prepare
+
+    if device.type == "cuda":
+        n_devices = min(n_devices, torch.cuda.device_count())
+        devices = [torch.device("cuda", i) for i in range(n_devices)]
+    else:
+        devices = [device] * n_devices
+    mesh = make_mesh_1d(n_devices, devices)
+    prob, state = prepare(data, cfg, devices[0])
+    h = prob.mask.shape[0]
+    sf = int(data.sf)
+    if h % n_devices or (h // sf) % n_devices:
+        raise SystemExit(
+            f"--sharded: image height {h} and LR height {h // sf} must "
+            f"both be divisible by {n_devices}")
+    t = Timer(devices[0]).start()
+    final, trace = solve_fused_sharded(state, prob, sf, cfg, mesh,
+                                       (prefs.block_x, prefs.block_y))
+    dt = t.end()
+    trace = trace.tolist()
+    n_it = final.iteration
+    metrics = []
+    for i in range(n_it):
+        print(f"Iteration {i + 1:02d}  Error: {trace[i]:.3f}")
+        metrics.append({"iteration": i + 1, "energy": trace[i]})
+    metrics.append({"total_seconds": dt, "iterations": n_it,
+                    "devices": n_devices})
+    print(f"sharded solve ({n_devices} devices): {n_it} iterations "
+          f"in {dt:.3f}s, final energy {float(final.energy):.3f}")
+    _write_outputs(final, prob, rt, metrics)
 
 
 if __name__ == "__main__":

@@ -39,16 +39,13 @@
 // at 960 x 1280, against about 29 flops per pixel (the standard kernel
 // moves the same 19 planes in two sweeps).
 
+#include "cgs_common.cuh"
 #include "stencil_common.cuh"
 
 namespace {
 
 using namespace srps;
-
-// Device scalars of one lane (float). S_K counts the sweeps done.
-constexpr int S_GAMMA = 0, S_DELTA = 1, S_GOLD = 2, S_AOLD = 3, S_ALPHA = 4,
-              S_BETA = 5, S_ACT = 6, S_ITERS = 7, S_K = 8;
-constexpr int N_SCAL = 9;
+using namespace cgs;
 // Planes of the (r, w, s) buffer pair, per lane: [r, w, s] of set 0, then
 // of set 1.
 constexpr int RWS_ROWS = 6;
@@ -184,11 +181,7 @@ sweep_kernel(const float* __restrict__ C, const float* __restrict__ F,
   }
 }
 
-// One block per lane (blockIdx.x). `first` follows the prologue: it seeds
-// gamma_old = alpha_old = 1, active = 1 and iters = 0 (pallas_cg_cgs.py:
-// 100-103); otherwise it follows a sweep and shifts gamma and alpha into
-// their _old slots (:329-332). Then it decides the next iteration
-// it = sweeps done + 1 (:216-232).
+// One block per lane (blockIdx.x): cgs::update from the lane's sums.
 __global__ void __launch_bounds__(REDUCE_THREADS)
 reduce_kernel(const float* __restrict__ part, int nb, float* __restrict__ scal,
               float tol2, int max_iter, int first) {
@@ -198,35 +191,7 @@ reduce_kernel(const float* __restrict__ part, int nb, float* __restrict__ scal,
   part += (size_t)blockIdx.x * 2 * nb;
   const double gd = reduce_parts(part, nb, sh);
   const double dd = reduce_parts(part + nb, nb, sh);
-  if (threadIdx.x == 0) {
-    float act = 1.0f, iters = 0.0f, k = 0.0f;
-    if (first) {
-      scal[S_GOLD] = 1.0f;
-      scal[S_AOLD] = 1.0f;
-    } else {
-      scal[S_GOLD] = scal[S_GAMMA];
-      scal[S_AOLD] = scal[S_ALPHA];
-      act = scal[S_ACT];
-      iters = scal[S_ITERS];
-      k = scal[S_K];
-    }
-    const float gamma = (float)gd;
-    const float delta = (float)dd;
-    scal[S_GAMMA] = gamma;
-    scal[S_DELTA] = delta;
-    const float it = k + 1.0f;
-    const bool on = act > 0.0f && gamma > tol2 &&
-                    it - 1.0f <= (float)max_iter;
-    const float gold = scal[S_GOLD];
-    const float beta =
-        it == 1.0f ? 0.0f : gamma / (gold == 0.0f ? 1.0f : gold);
-    const float denom = delta - beta * gamma / scal[S_AOLD];
-    scal[S_BETA] = beta;
-    scal[S_ALPHA] = gamma / (denom == 0.0f ? 1.0f : denom);
-    scal[S_ACT] = on ? 1.0f : 0.0f;
-    scal[S_ITERS] = on ? iters + 1.0f : iters;
-    scal[S_K] = it;
-  }
+  if (threadIdx.x == 0) update(scal, gd, dd, tol2, max_iter, first != 0);
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
-// The standard-CG pieces shared by stencil_cg.cu and direct_cg.cu: the
-// lane's device scalars, the one-block reduces that update them, and sweep B
-// (x += alpha p, r -= alpha w). Only the prologue and sweep A (how M is
-// applied) differ between the two kernels.
+// The standard-CG pieces shared by stencil_cg.cu, direct_cg.cu and
+// shard_cg.cu: the lane's device scalars and their updates, the one-block
+// reduces that apply them, and sweep B (x += alpha p, r -= alpha w). Only
+// the prologue and sweep A (how M is applied) differ between the kernels.
 //
 // Each lane owns N_SCAL floats of scalars and PART_ROWS rows of per-block
 // partial sums. r1 drives alpha and beta (rz under Jacobi PCG); rr is <r, r>
@@ -25,8 +25,57 @@ constexpr int N_SCAL = 10;
 // the energy and (Jacobi) rz; sweep A <p, w>; sweep B <r, r> and rz.
 constexpr int PART_ROWS = 3;
 
-// One block per lane (blockIdx.x). In PCG r1 = rz and the stop test reads
-// rr; otherwise both are <r, r>.
+// The lane's scalar updates from the sums of its partials, each done by one
+// thread: after the prologue (rr, the energy e0 and, in PCG, rz), after
+// sweep A (pw) and after sweep B (rr, rz). In PCG r1 = rz and the stop test
+// reads rr; otherwise both are <r, r>. The reduces below call them on a
+// lane's own sums; shard_cg.cu on the sums of every row shard.
+__device__ void scal_init(float* __restrict__ scal, double rr, double e0,
+                          double rz, float tol2, int max_iter) {
+  const float rrf = (float)rr;
+  const bool act = (rrf > tol2) && (0 <= max_iter);
+  scal[S_R0] = 0.0f;
+  scal[S_R1] = (float)rz;
+  scal[S_RR] = rrf;
+  scal[S_PW] = 0.0f;
+  scal[S_ALPHA] = 0.0f;
+  scal[S_BETA] = 0.0f;
+  scal[S_E] = (float)e0;
+  scal[S_ACT] = act ? 1.0f : 0.0f;
+  scal[S_ITERS] = act ? 1.0f : 0.0f;
+  scal[S_K] = 1.0f;
+}
+
+__device__ void scal_a(float* __restrict__ scal, double pw) {
+  const float pwf = (float)pw;
+  const float r1 = scal[S_R1];
+  const float alpha = r1 / (pwf == 0.0f ? 1.0f : pwf);
+  scal[S_PW] = pwf;
+  scal[S_ALPHA] = alpha;
+  // E(x + alpha p) = E(x) - alpha <p, r> with <p, r> = r1 (_e0_band),
+  // using r1 from before sweep B.
+  scal[S_E] = scal[S_E] - alpha * r1;
+}
+
+__device__ void scal_b(float* __restrict__ scal, double rr, double rz,
+                       float tol2, int max_iter) {
+  const float rrf = (float)rr;
+  const float r1f = (float)rz;
+  const float r1_old = scal[S_R1];
+  scal[S_R0] = r1_old;
+  scal[S_R1] = r1f;
+  scal[S_RR] = rrf;
+  // Start of the next iteration k: the reference's test
+  // rr > tol^2 && k - 1 <= max_iter, and beta = r1 / r0.
+  const float k = scal[S_K] + 1.0f;
+  scal[S_K] = k;
+  const bool act = (rrf > tol2) && (k - 1.0f <= (float)max_iter);
+  scal[S_ACT] = act ? 1.0f : 0.0f;
+  scal[S_BETA] = r1f / (r1_old == 0.0f ? 1.0f : r1_old);
+  if (act) scal[S_ITERS] = scal[S_ITERS] + 1.0f;
+}
+
+// One block per lane (blockIdx.x).
 template <bool JAC>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 reduce_init_kernel(const float* __restrict__ part, int nb,
@@ -37,20 +86,7 @@ reduce_init_kernel(const float* __restrict__ part, int nb,
   const double rr = reduce_parts(part, nb, sh);
   const double e0 = reduce_parts(part + nb, nb, sh);
   const double rz = JAC ? reduce_parts(part + 2 * nb, nb, sh) : rr;
-  if (threadIdx.x == 0) {
-    const float rrf = (float)rr;
-    const bool act = (rrf > tol2) && (0 <= max_iter);
-    scal[S_R0] = 0.0f;
-    scal[S_R1] = (float)rz;
-    scal[S_RR] = rrf;
-    scal[S_PW] = 0.0f;
-    scal[S_ALPHA] = 0.0f;
-    scal[S_BETA] = 0.0f;
-    scal[S_E] = (float)e0;
-    scal[S_ACT] = act ? 1.0f : 0.0f;
-    scal[S_ITERS] = act ? 1.0f : 0.0f;
-    scal[S_K] = 1.0f;
-  }
+  if (threadIdx.x == 0) scal_init(scal, rr, e0, rz, tol2, max_iter);
 }
 
 __global__ void __launch_bounds__(REDUCE_THREADS)
@@ -61,16 +97,7 @@ reduce_a_kernel(const float* __restrict__ part, int nb,
   __shared__ double sh[REDUCE_THREADS];
   const double pw =
       reduce_parts(part + (size_t)blockIdx.x * PART_ROWS * nb, nb, sh);
-  if (threadIdx.x == 0) {
-    const float pwf = (float)pw;
-    const float r1 = scal[S_R1];
-    const float alpha = r1 / (pwf == 0.0f ? 1.0f : pwf);
-    scal[S_PW] = pwf;
-    scal[S_ALPHA] = alpha;
-    // E(x + alpha p) = E(x) - alpha <p, r> with <p, r> = r1 (_e0_band),
-    // using r1 from before sweep B.
-    scal[S_E] = scal[S_E] - alpha * r1;
-  }
+  if (threadIdx.x == 0) scal_a(scal, pw);
 }
 
 template <bool JAC>
@@ -122,22 +149,7 @@ reduce_b_kernel(const float* __restrict__ part, int nb,
   part += (size_t)blockIdx.x * PART_ROWS * nb;
   const double rr = reduce_parts(part, nb, sh);
   const double rz = JAC ? reduce_parts(part + nb, nb, sh) : rr;
-  if (threadIdx.x == 0) {
-    const float rrf = (float)rr;
-    const float r1f = (float)rz;
-    const float r1_old = scal[S_R1];
-    scal[S_R0] = r1_old;
-    scal[S_R1] = r1f;
-    scal[S_RR] = rrf;
-    // Start of the next iteration k: the reference's test
-    // rr > tol^2 && k - 1 <= max_iter, and beta = r1 / r0.
-    const float k = scal[S_K] + 1.0f;
-    scal[S_K] = k;
-    const bool act = (rrf > tol2) && (k - 1.0f <= (float)max_iter);
-    scal[S_ACT] = act ? 1.0f : 0.0f;
-    scal[S_BETA] = r1f / (r1_old == 0.0f ? 1.0f : r1_old);
-    if (act) scal[S_ITERS] = scal[S_ITERS] + 1.0f;
-  }
+  if (threadIdx.x == 0) scal_b(scal, rr, rz, tol2, max_iter);
 }
 
 }  // namespace

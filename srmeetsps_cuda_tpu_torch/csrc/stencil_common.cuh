@@ -3,7 +3,10 @@
 //
 // Layout of every plane: unpadded (h, w) row-major f32; a problem stack
 // holds B lanes of such planes back to back, and a kernel's blockIdx.z is
-// its lane. Neighbour reads outside the image are guarded and read 0.
+// its lane. Neighbour reads outside the image are guarded and read 0. The
+// row-shard kernels (shard_cg.cu) read planes with HALO = 1 neighbour row
+// above and below their h rows: pointers there address row 0 of an
+// (h + 2, w) plane, and rows -1 and h are readable.
 
 #pragma once
 
@@ -25,13 +28,15 @@ constexpr int N_STENCIL = 9;
 constexpr int MAX_THREADS = 1024;
 constexpr int REDUCE_THREADS = 1024;
 
+template <int HALO = 0>
 __device__ __forceinline__ bool inside(int i, int j, int h, int w) {
-  return i >= 0 && i < h && j >= 0 && j < w;
+  return i >= -HALO && i < h + HALO && j >= 0 && j < w;
 }
 
+template <int HALO = 0>
 __device__ __forceinline__ float at(const float* __restrict__ a, int i, int j,
                                     int h, int w) {
-  return inside(i, j, h, w) ? a[(size_t)i * w + j] : 0.0f;
+  return inside<HALO>(i, j, h, w) ? a[(ptrdiff_t)i * w + j] : 0.0f;
 }
 
 // The fields of the F pack at one pixel; all zero outside the image.
@@ -39,21 +44,23 @@ struct Pt {
   float ax, bx, ay, by, p11, p12, p13, p22, p23, p33;
 };
 
+template <int HALO = 0>
 __device__ __forceinline__ Pt load_pt(const float* __restrict__ F, size_t hw,
                                       int i, int j, int h, int w) {
   Pt q{};
-  if (!inside(i, j, h, w)) return q;
-  const size_t o = (size_t)i * w + j;
-  q.ax = F[F_AX * hw + o];
-  q.bx = F[F_BX * hw + o];
-  q.ay = F[F_AY * hw + o];
-  q.by = F[F_BY * hw + o];
-  q.p11 = F[F_P11 * hw + o];
-  q.p12 = F[F_P12 * hw + o];
-  q.p13 = F[F_P13 * hw + o];
-  q.p22 = F[F_P22 * hw + o];
-  q.p23 = F[F_P23 * hw + o];
-  q.p33 = F[F_P33 * hw + o];
+  if (!inside<HALO>(i, j, h, w)) return q;
+  const ptrdiff_t o = (ptrdiff_t)i * w + j;
+  const ptrdiff_t s = (ptrdiff_t)hw;
+  q.ax = F[F_AX * s + o];
+  q.bx = F[F_BX * s + o];
+  q.ay = F[F_AY * s + o];
+  q.by = F[F_BY * s + o];
+  q.p11 = F[F_P11 * s + o];
+  q.p12 = F[F_P12 * s + o];
+  q.p13 = F[F_P13 * s + o];
+  q.p22 = F[F_P22 * s + o];
+  q.p23 = F[F_P23 * s + o];
+  q.p33 = F[F_P33 * s + o];
   return q;
 }
 
@@ -77,14 +84,16 @@ __device__ __forceinline__ float pbb(const Pt& q) { return q.bx * q.by * q.p12; 
 
 // The 9 stencil coefficients of M at pixel (i, j). "+x" is column j + 1,
 // "+y" is row i + 1. At sf <= 2 the KT^T KT tile mates are folded in by the
-// pixel's row and column phase (h and w are multiples of sf).
+// pixel's row and column phase (h and w are multiples of sf; a row shard's
+// first row has an even global index).
+template <int HALO = 0>
 __device__ void build_c(const float* __restrict__ F, size_t hw, int i, int j,
                         int h, int w, float lam, int sf, float c[9]) {
-  const Pt q = load_pt(F, hw, i, j, h, w);
-  const Pt e = load_pt(F, hw, i, j + 1, h, w);
-  const Pt o = load_pt(F, hw, i, j - 1, h, w);
-  const Pt s = load_pt(F, hw, i + 1, j, h, w);
-  const Pt n = load_pt(F, hw, i - 1, j, h, w);
+  const Pt q = load_pt<HALO>(F, hw, i, j, h, w);
+  const Pt e = load_pt<HALO>(F, hw, i, j + 1, h, w);
+  const Pt o = load_pt<HALO>(F, hw, i, j - 1, h, w);
+  const Pt s = load_pt<HALO>(F, hw, i + 1, j, h, w);
+  const Pt n = load_pt<HALO>(F, hw, i - 1, j, h, w);
   const float cx = q.ax - q.bx;
   const float cy = q.ay - q.by;
   c[1] = -(e1(q) + e2(e));
@@ -138,6 +147,7 @@ __device__ __forceinline__ float tile_sum(Get v, int i, int j, int sf) {
 }
 
 // rhs = z0t + lam * (Dx^T QB1 + Dy^T QB2 - QB3) at pixel (i, j).
+template <int HALO = 0>
 __device__ __forceinline__ float rhs_at(const float* __restrict__ F,
                                         const float* __restrict__ R0,
                                         size_t hw, int i, int j, int h, int w,
@@ -149,12 +159,14 @@ __device__ __forceinline__ float rhs_at(const float* __restrict__ F,
   const float* by = F + F_BY * hw;
   const float* qb1 = R0 + R_QB1 * hw;
   const float* qb2 = R0 + R_QB2 * hw;
-  const float dxq = at(ax, i, j - 1, h, w) * at(qb1, i, j - 1, h, w) -
-                    ax[o] * qb1[o] + bx[o] * qb1[o] -
-                    at(bx, i, j + 1, h, w) * at(qb1, i, j + 1, h, w);
-  const float dyq = at(ay, i - 1, j, h, w) * at(qb2, i - 1, j, h, w) -
-                    ay[o] * qb2[o] + by[o] * qb2[o] -
-                    at(by, i + 1, j, h, w) * at(qb2, i + 1, j, h, w);
+  const float dxq =
+      at<HALO>(ax, i, j - 1, h, w) * at<HALO>(qb1, i, j - 1, h, w) -
+      ax[o] * qb1[o] + bx[o] * qb1[o] -
+      at<HALO>(bx, i, j + 1, h, w) * at<HALO>(qb1, i, j + 1, h, w);
+  const float dyq =
+      at<HALO>(ay, i - 1, j, h, w) * at<HALO>(qb2, i - 1, j, h, w) -
+      ay[o] * qb2[o] + by[o] * qb2[o] -
+      at<HALO>(by, i + 1, j, h, w) * at<HALO>(qb2, i + 1, j, h, w);
   return R0[R_Z0T * hw + o] + lam * (dxq + dyq - R0[R_QB3 * hw + o]);
 }
 

@@ -1,1 +1,2 @@
-"""Multi-object solves (``batched.py``)."""
+"""Multi-object solves (``batched.py``) and the row-sharded depth CG
+(``shard_cg.py``, ``shard_kernels.py``, ``sharded.py``)."""

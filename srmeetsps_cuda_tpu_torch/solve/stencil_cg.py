@@ -106,8 +106,11 @@ def energy_planes(masks: torch.Tensor, z0s: torch.Tensor, sf: int) -> torch.Tens
     return torch.stack([u1, u2], dim=-3)
 
 
-def build_c_planes(op, gm, ktw: torch.Tensor, lam: float, sf: int) -> torch.Tensor:
-    """The (..., 9, h, w) stencil planes of M (``_build_c_band``).
+def build_c_planes(op, gm, ktw: torch.Tensor, lam: float, sf: int,
+                   row0: int = 0) -> torch.Tensor:
+    """The (..., 9, h, w) stencil planes of M (``_build_c_band``). ``row0``
+    is the image row of the planes' first row (-1 for a row shard's fields
+    with a halo row above), whose parity the sf = 2 fold reads.
 
     Expanding ``Dx' P Dx``-type products with the exclusive fwd/bwd masks
     (a*b = 0, a^2 = a) cancels every +-2 offset, so A^T A has 3x3 support;
@@ -147,7 +150,7 @@ def build_c_planes(op, gm, ktw: torch.Tensor, lam: float, sf: int) -> torch.Tens
         h, w = ktw.shape[-2:]
         dev = ktw.device
         pxe = (torch.arange(w, device=dev) % 2 == 0)[None, :]
-        pye = (torch.arange(h, device=dev) % 2 == 0)[:, None]
+        pye = ((torch.arange(h, device=dev) + row0) % 2 == 0)[:, None]
         zero = torch.zeros_like(ktw)
         kxe = torch.where(pxe, ktw, zero)
         kxo = ktw - kxe

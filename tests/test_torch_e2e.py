@@ -128,13 +128,14 @@ def test_cli_help_exits_zero(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dsloc", "a.mat", "--sharded", "2"],
+    ["--dsloc", "a.mat", "--show", "--sharded", "2"],
     ["--dsloc", "a.mat", "--show"],
     ["--dsloc", "a.mat", "--dump-operators"],
     ["--dsloc", "a.mat", "--image-dtype", "bfloat16"],
 ], ids=lambda a: a[-1] if a[-1] != "a.mat" else a[-2])
 def test_cli_unported_options_exit_with_roadmap(argv):
-    """Unported options exit before any device or file is touched."""
+    """Unported options exit before any device or file is touched, also
+    beside a ported one (``--sharded``)."""
     with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
         cli.main(argv)
 
@@ -162,6 +163,9 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 new = set(sys.modules) - before
 bad = sorted(n for n in new if n.split(".")[0] in ("jax", "jaxlib", "srmeetsps_cuda_tpu"))
 assert not bad, bad
+sharded = {"srmeetsps_cuda_tpu_torch.parallel." + m
+           for m in ("shard_cg", "shard_kernels", "sharded")}
+assert sharded <= new, sorted(sharded - new)
 print(len([n for n in new if n.startswith("srmeetsps_cuda_tpu_torch")]))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
