@@ -79,14 +79,18 @@ falls back to the CPU or to a plain version):
    at 1088 x 1920 sf = 2, in the standard, CGS and Jacobi forms, from the
    warm and a cold start at two thread-block shapes (``cg_vs_plain``'s
    bounds, iteration counts equal); the 4-shard CG against the unsharded
-   kernel of the same recurrence; ms per CG iteration of kernel and plain;
+   kernel of the same recurrence (Jacobi: the direct CG's PCG) within the
+   same bounds; ms per CG iteration of kernel and plain, and the device
+   time of one launch of each shard wrapper;
 4j. BASELINE.md configuration 5 (1088 x 1920, n = 20, c = 3, sf = 2)
    through ``parallel.sharded.solve_fused_sharded`` on 4 shards of the
-   card in the three forms: the stopping rule, at most one outer iteration
-   from phase 4g's unsharded run and energies within phase 3's bound of it
-   (Jacobi: printed, held to the drift bound), a repeated solve bit-equal,
-   every depth CG through the shard kernels; then ``--sharded 4`` through
-   the CLI on the phase-4 file (one shard per card present).
+   card in the three forms: the stopping rule, a repeated solve bit-equal,
+   every depth CG through the shard kernels, at most one outer iteration
+   from the same solve with the plain per-shard steps and every energy
+   within phase 3's bound of it; the same against phase 4g's unsharded run
+   for the standard and CGS forms (Jacobi: printed, as 4g takes the scaled
+   form); then ``--sharded 4`` through the CLI on the phase-4 file (one
+   shard per card present).
 
 The line before the last but one is a JSON object with one entry per
 kernel and mode (its times per CG iteration at the main path's shapes, and
@@ -189,10 +193,14 @@ SHARD_FORMS = {
     "jacobi": ({"prologue": 107, "iteration": 30}, 18, 21),
 }
 SHARD_REPLACES = "srmeetsps_cuda_tpu/parallel/shard_pallas.py:"
-# Relative gap of the 4-shard CG to the unsharded kernel allowed for the
-# Jacobi form at sf <= 2, where the unsharded kernel runs the scaled form
-# (ROADMAP Queue 3's unconverged-drift bound).
-DRIFT = 3e-2
+# f32 planes of (h / N, w) one launch of each shard wrapper streams (its
+# combine and one-block sum aside): the prologue reads F, R0, x0 (invd) and
+# writes x, r and 9 C planes; sweep A reads 9 C, r, p_old (invd; ktw at sf
+# 4) and writes p, w; sweep B reads x, r, p, w (invd) and writes x, r; the
+# CGS sweep reads 9 C, x, p and one (r, w, s) set and writes the others.
+SHARD_LAUNCH_PLANES = {"shard_cg prologue": 27, "shard_cg sweep_a": 13,
+                       "shard_cg sweep_b": 6, "shard_cg sweep_b jacobi": 7,
+                       "shard_cg cgs_sweep": 19}
 
 DIRECT_REPLACES = {
     "direct": ("pallas_cg_vmem.py:961", "pallas_cg_vmem.py:1148",
@@ -717,15 +725,87 @@ def shard_call(form, ln, mesh, x0=None, plain=False, **kw):
 
 def unsharded_call(form, ln, x0, **kw):
     """``(x, iterations, residual)`` of the unsharded kernel that runs the
-    same recurrence: stencil_cg (its Jacobi form: scaled at sf <= 2, PCG at
-    sf 4) or cgs_cg."""
+    same recurrence: stencil_cg, cgs_cg, or for Jacobi the direct CG's
+    in-sweep PCG at every sf (stencil_cg's Jacobi takes the scaled form at
+    sf <= 2; the direct operator is the stencil's within 2e-6 of max|M v|,
+    phase 3f)."""
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
     if form == "cgs":
         return cg.cgs_cg(x0, *ln[1:5], **kw)
-    invd = ln[6] if form == "jacobi" else None
-    return sc.stencil_cg(x0, *ln[1:6], invd=invd, **kw)[:3]
+    if form == "jacobi":
+        return dc.direct_cg(x0, *ln[1:6], invd=ln[6], **kw)[:3]
+    return sc.stencil_cg(x0, *ln[1:6], **kw)[:3]
+
+
+def device_ms(fn, reps: int = 30, cycles: int = 50_000_000):
+    """Device milliseconds per call of ``fn`` alone: the stream is held by
+    a spin kernel while the host queues ``reps`` calls, so they run back to
+    back and the events around them time the card, not the host's
+    launches. None where the host outran the spin (the queue drained)."""
+    import torch
+
+    if not hasattr(torch.cuda, "_sleep"):
+        return None
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms >= ev[0].elapsed_time(ev[1]):
+        return None
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def shard_launch_ms(form, ln, mesh, sf):
+    """Device ms of one launch of each shard wrapper of ``form`` on shard 0
+    of ``mesh`` (its combine, its sweep and its one-block sum), from the
+    state of a solve's first iteration (cap 100: the repeats stay active),
+    with the streaming time of its planes: {counter name: (ms, stream
+    ms)}."""
+    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
+    from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
+
+    cgs, b = form == "cgs", None
+    shards = scg._shards(mesh, ln[0], ln[1], ln[2], ln[3], ln[4], sf=sf,
+                         lam=1.0, tol=1e-9, max_iter=100, cgs=cgs,
+                         invd=ln[6] if form == "jacobi" else None,
+                         block=(256, 4))
+    for s in shards:
+        sk.prologue(s)
+    scg.exchange_halos([(s.rws[0] if cgs else s.r) for s in shards])
+    if cgs:
+        for s in shards:
+            sk.cgs_w0(s)
+        scg.exchange_halos([s.rws[:3] for s in shards])
+    scg._reduce(shards)
+    s = shards[0]
+    calls = {"shard_cg prologue": lambda: sk.prologue(s)}
+    if cgs:
+        sk.cgs_step(s, 1)
+        calls["shard_cg cgs_sweep"] = lambda: sk.cgs_step(s, 2)
+    else:
+        sk.step_a(s, 1)
+        b = "shard_cg sweep_b" + (" jacobi" if form == "jacobi" else "")
+        calls.update({"shard_cg sweep_a": lambda: sk.step_a(s, 2),
+                      b: lambda: sk.step_b(s, 2)})
+    out = {}
+    for name, fn in calls.items():
+        planes = SHARD_LAUNCH_PLANES[name] + (
+            1 if form == "jacobi" and name != b else 0) + (
+            1 if sf == 4 and name == "shard_cg sweep_a" else 0)
+        out[name] = (device_ms(fn),
+                     1e3 * planes * 4 * s.h * s.w / HBM_BYTES_PER_S)
+    return out
 
 
 def shard_vs_plain(label, grids, timed, shards=4):
@@ -736,12 +816,11 @@ def shard_vs_plain(label, grids, timed, shards=4):
     (iteration counts equal, the update x - x0 and the residual after 2 and
     12 iterations within UPD_BOUND / RES_BOUND, each shard's launches
     counted), a repeated run bit-equal, and the sharded kernels against the
-    unsharded kernel of the same recurrence after 2 iterations (the Jacobi
-    form at sf <= 2, where that kernel runs the scaled form, within DRIFT
-    or the bound of its start, whichever is larger).
-    On the grids in ``timed``, ms per CG iteration of kernel and plain at
-    cap 100 and of one prologue with one iteration. Returns {form: {grid:
-    entry}}."""
+    unsharded kernel of the same recurrence (unsharded_call) after 2
+    iterations, within the same bounds. On the grids in ``timed``, ms per
+    CG iteration of kernel and plain at cap 100, of one prologue with one
+    iteration, and the device time of one launch of each wrapper on one
+    shard (shard_launch_ms). Returns {form: {grid: entry}}."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
@@ -798,16 +877,9 @@ def shard_vs_plain(label, grids, timed, shards=4):
                                                    lam=1.0, max_iter=cap)
                         upd = rel_rms(x - x0, x1 - x0)
                         gap = abs(float(r) - float(r1)) / abs(float(r1))
-                        drift = form == "jacobi" and sf <= 2
                         vs_one.append(f"{start} {upd:.2e} / {gap:.2e}")
-                        # The scaled form rounds otherwise: no bound
-                        # tighter than DRIFT (a warm start's update is
-                        # swamped by x0 either way).
-                        u_max, r_max = (UPD_BOUND[start][cap],
-                                        RES_BOUND[start][cap])
-                        if drift:
-                            u_max, r_max = max(u_max, DRIFT), max(r_max, DRIFT)
-                        if upd > u_max or gap > r_max:
+                        if (upd > UPD_BOUND[start][cap]
+                                or gap > RES_BOUND[start][cap]):
                             raise AssertionError(
                                 f"{where}: against the unsharded kernel, "
                                 f"update {upd:.3e}, residual {gap:.3e}")
@@ -852,6 +924,14 @@ def shard_vs_plain(label, grids, timed, shards=4):
                                 f"{shards} shards, {h}x{w} sf {sf}"}
                     timing += (f"; prologue + 1 iteration {t_k:.4f} ms, "
                                f"plain {t_p:.4f}")
+                launch = shard_launch_ms(form, ln, mesh, sf)
+                entry["launch"] = {name: {"device_ms": ms, "stream_ms": sm}
+                                   for name, (ms, sm) in launch.items()}
+                timing += "; device ms per launch on one shard: " + ", ".join(
+                    f"{name[9:]} "
+                    + ("not measured" if ms is None else f"{ms:.4f}")
+                    + f" (stream {sm:.4f})"
+                    for name, (ms, sm) in launch.items())
             out[form][h, w, sf] = entry
             print(f"[{label}] shard_cg {form} {shards} shards {h}x{w} "
                   f"sf={sf}: iterations equal; relative RMS of the update / "
@@ -869,7 +949,10 @@ def shard_entries(per_form, launches, grid, others):
     """The ``kernels`` line's entries of the row-shard kernels, one per TPU
     kernel: the figures of ``grid`` (those of ``others`` under ``grids``)
     of the form that runs the kernel, and the launches of phase 4j's runs,
-    ``launches[form]``."""
+    ``launches[form]``. ``ms`` is the whole sharded CG's per iteration,
+    host launches included; ``device_ms_per_launch`` the card's time for
+    one launch of this kernel's wrapper on one shard, beside its planes'
+    streaming time ``launch_stream_ms``."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
             "cg_iterations", "update_rel_rms", "residual_rel_gap")
     rows = (("shard_cg prologue", "std", 124),
@@ -888,11 +971,19 @@ def shard_entries(per_form, launches, grid, others):
                  "max_abs_err": src["max_abs_err"], "form": form}
         entry.update({k: figures[k] for k in keys + ("unit",)
                       if k in figures})
-        entry["grids"] = {f"{h}x{w} sf {sf}": {
-            k: v for k, v in (per_form[form][h, w, sf]["prologue"]
-                              if name.endswith("prologue")
-                              else per_form[form][h, w, sf]).items()
-            if k in keys} for (h, w, sf) in others}
+
+        def launch(e):
+            d = e["launch"][name]
+            return {"device_ms_per_launch": d["device_ms"],
+                    "launch_stream_ms": d["stream_ms"]}
+
+        entry.update(launch(src))
+        entry["grids"] = {}
+        for (h, w, sf) in others:
+            e = per_form[form][h, w, sf]
+            entry["grids"][f"{h}x{w} sf {sf}"] = dict(
+                {k: v for k, v in (e["prologue"] if name.endswith("prologue")
+                                   else e).items() if k in keys}, **launch(e))
         out.append(entry)
     return out
 
@@ -1305,16 +1396,33 @@ def shard_form(cfg) -> str:
     return "cgs" if cfg.cg_variant == "cgs" else "std"
 
 
+@contextlib.contextmanager
+def plain_shard_steps():
+    """The row-shard loops run the plain per-shard steps on every device
+    while this holds (the loops read ``shard_kernels.KERNELS`` per solve)."""
+    from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
+
+    kernels = sk.KERNELS
+    sk.KERNELS = sk.PLAIN
+    try:
+        yield
+    finally:
+        sk.KERNELS = kernels
+
+
 def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
     """Phase 4j: ``data`` through ``parallel.sharded.solve_fused_sharded``
-    on ``shards`` shards of the card with ``cfg``, twice, the launch counts
-    set to 0 just before each solve and read just after. Checks a finite
-    depth, the stopping rule, the repeat bit for bit, the launches (every
-    depth CG through the shard kernels, no other CG kernel) and, against
-    the unsharded run ``ref`` (energies) of the same file, at most one
-    outer iteration more or less and the energies within
-    ``energy_bound(ref[0], const)`` (Jacobi: within DRIFT of the first
-    energy, the unsharded run taking the scaled form). Returns the run as
+    on ``shards`` shards of the card with ``cfg``, twice with the kernels
+    and once with their plain versions (plain_shard_steps), the launch
+    counts set to 0 just before each solve and read just after. Checks a
+    finite depth, the stopping rule, the repeat bit for bit, the launches
+    (every depth CG through the shard kernels, no other CG kernel; none in
+    the plain run) and, against the plain run (the same recurrence), at
+    most one outer iteration more or less and every energy within
+    ``energy_bound(plain[0], const)``. Against the unsharded run ``ref``
+    (energies) of the same file: the standard and CGS runs held as
+    against the plain run; the Jacobi run's gap printed, since the
+    unsharded solve runs the scaled form at sf <= 2. Returns the run as
     main_path does."""
     import torch
 
@@ -1328,72 +1436,73 @@ def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
     h, w = data.mask.shape
     what = f"sharded {form} {shards} shards {h}x{w} n={data.I.shape[0]}"
     runs = []
-    for _ in range(2):
+    for plain in (False, False, True):
         prob, st = prepare(data, cfg, dev)
         cg_iters = []
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        final, trace = sharded.solve_fused_sharded(
-            st, prob, int(data.sf), cfg, mesh,
-            on_iteration=lambda s: cg_iters.append(s.cg_iters))
+        with plain_shard_steps() if plain else contextlib.nullcontext():
+            final, trace = sharded.solve_fused_sharded(
+                st, prob, int(data.sf), cfg, mesh,
+                on_iteration=lambda s: cg_iters.append(s.cg_iters))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         runs.append((trace[:final.iteration].tolist(), dt, read_counts(),
                      [int(c) for c in cg_iters], final.z))
     energies, dt, launches, cg_iters, z = runs[0]
+    plain_e, plain_dt, plain_launches, plain_cg, _ = runs[2]
     n_it = len(energies)
     if runs[1][0] != energies or not torch.equal(runs[1][4], z):
         raise AssertionError(f"{what}: a repeated solve gave {runs[1][0]}, "
                              f"the first {energies}")
-    if not all(map(math.isfinite, energies)):
-        raise AssertionError(f"{what}: energies not finite: {energies}")
-    if not stop_rule_held(energies, cfg.tolerance, cfg.max_iterations):
-        raise AssertionError(f"{what}: stopping rule violated: {energies}")
+    if not all(map(math.isfinite, energies + plain_e)):
+        raise AssertionError(f"{what}: energies not finite: {energies}, "
+                             f"plain {plain_e}")
+    for e in (energies, plain_e):
+        if not stop_rule_held(e, cfg.tolerance, cfg.max_iterations):
+            raise AssertionError(f"{what}: stopping rule violated: {e}")
     want = dict(expected_counts(0),
                 **shard_counts(n_it, shards, cfg.cg_max_iter, form))
-    if launches != want:
+    if launches != want or any(plain_launches.values()):
         raise AssertionError(f"{what}: kernel runs {launches}, expected "
-                             f"{want}")
+                             f"{want}; in the plain run {plain_launches}")
     cap = cfg.cg_max_iter + 1
     if not all(c == cap or (form == "jacobi" and 0 < c < cap)
-               for c in cg_iters):
-        raise AssertionError(f"{what}: CG iterations {cg_iters} off the cap")
+               for c in cg_iters + plain_cg):
+        raise AssertionError(f"{what}: CG iterations {cg_iters} (plain "
+                             f"{plain_cg}) off the cap")
     m = torch.as_tensor(data.mask) != 0
     z = z.cpu()
     if not bool(torch.isfinite(z).all()):
         raise AssertionError(f"{what}: final depth is not finite")
     rmse = float((z[m] - torch.as_tensor(z_true)[m]).double().square()
                  .mean().sqrt())
-    if abs(len(ref) - n_it) > 1:
-        raise AssertionError(f"{what}: {n_it} outer iterations, the "
-                             f"unsharded run {len(ref)}")
-    k = min(len(ref), n_it)
-    gap = max(abs(x - y) for x, y in zip(energies, ref))
-    if form == "jacobi":
-        # The unsharded run's scaled-form energies are quantised by the f32
-        # rounding of their constant (30.0, 30.0 at the end), as large as
-        # the late energies themselves: the gap is held on the scale of
-        # the first energy, as small_input_vs_cpu holds late energies.
-        rel = gap / abs(ref[0])
-        if rel > DRIFT:
-            raise AssertionError(f"{what}: energies {energies} vs the "
-                                 f"unsharded run's {ref}: max gap {rel:.3e} "
-                                 "of the first energy")
-        held = f"max gap {rel:.2e} of the first energy (bound {DRIFT})"
-    else:
-        check_close(f"{what} energies vs the unsharded run's (const "
-                    f"{const})", energies[:k], ref[:k], 0,
-                    energy_bound(ref[0], const))
-        held = f"phase 3's bound {energy_bound(ref[0], const):.3f}"
+    held = []
+    for other, e_ref, hold in (("plain", plain_e, True),
+                               ("unsharded", ref, form != "jacobi")):
+        gap = max(abs(x - y) for x, y in zip(energies, e_ref))
+        bnd = energy_bound(e_ref[0], const)
+        held.append(f"the {other} run: {len(e_ref)} outer iterations, "
+                    f"energies max gap {gap:.4f} "
+                    + ("within" if hold else "printed against")
+                    + f" phase 3's bound {bnd:.3f}")
+        if not hold:
+            continue
+        if abs(len(e_ref) - n_it) > 1:
+            raise AssertionError(f"{what}: {n_it} outer iterations, the "
+                                 f"{other} run {len(e_ref)}")
+        k = min(len(e_ref), n_it)
+        check_close(f"{what} energies vs the {other} run's (const {const})",
+                    energies[:k], e_ref[:k], 0, bnd)
     print(f"[{label}] {what}: {n_it} outer iterations, final energy "
           f"{energies[-1]:.4f}, solve {dt:.4f} s ({1e3 * dt / n_it:.3f} "
-          f"ms/outer-iter; repeat {1e3 * runs[1][1] / n_it:.3f}), launches "
+          f"ms/outer-iter; repeat {1e3 * runs[1][1] / n_it:.3f}; plain "
+          f"{1e3 * plain_dt / len(plain_e):.3f}), launches "
           f"{ {k_: v for k_, v in launches.items() if v} }, CG iterations "
           f"{cg_iters}, depth RMSE vs truth {rmse:.4f}; repeated solve "
-          f"bit-equal; the unsharded run: {len(ref)} outer iterations, "
-          f"energies max gap {gap:.4f}, {held}", flush=True)
-    print(f"[{label}] energy trace {energies}", flush=True)
+          f"bit-equal; " + "; ".join(held), flush=True)
+    print(f"[{label}] energy trace {energies}; plain {plain_e}", flush=True)
     return {"iterations": n_it, "energies": energies, "seconds": dt,
             "launches": launches, "rmse": rmse}
 

@@ -37,8 +37,8 @@
 //
 // Entry points, each launched on the caller's stream, in the order a solve
 // calls them (the caller exchanges halos and gathers sums in between):
-//   srps_shard_prologue   r0 = rhs - M x0 (or r0 = b given), the C planes,
-//                         x = x0, partials <r0, r0> (and rz0 under Jacobi);
+//   srps_shard_prologue   r0 = rhs - M x0, the C planes, x = x0, partials
+//                         <r0, r0> (and rz0 under Jacobi);
 //   srps_shard_cgs_w0     CGS: w0 = M r0, partials gamma0 and delta0;
 //   srps_shard_step_a     combine (the prologue's sums, or sweep B's),
 //                         sweep A: p = z + beta p_old (z = invd r under
@@ -115,16 +115,15 @@ __global__ void combine_cgs_kernel(const double* __restrict__ g, int n,
               first != 0);
 }
 
-// r0 (or b) into r, the C planes, x = x0, partials <r0, r0> (row 0) and,
-// under Jacobi, rz0 = sum r0^2 invd (row 1). F, R0, x0 and invd are halo
-// planes (row-0 pointers, he floats apart); with GIVEN, r0 = b and neither
-// R0 nor the halo rows of x0 are read.
-template <bool JAC, bool GIVEN>
+// r0 = rhs - M x0 into r, the C planes, x = x0, partials <r0, r0> (row 0)
+// and, under Jacobi, rz0 = sum r0^2 invd (row 1). F, R0, x0 and invd are
+// halo planes (row-0 pointers, he floats apart).
+template <bool JAC>
 __global__ void __launch_bounds__(MAX_THREADS)
 prologue_kernel(const float* __restrict__ F, const float* __restrict__ R0,
-                const float* __restrict__ x0, const float* __restrict__ b,
-                const float* __restrict__ invd, float* __restrict__ x,
-                float* __restrict__ r, float* __restrict__ C,
+                const float* __restrict__ x0, const float* __restrict__ invd,
+                float* __restrict__ x, float* __restrict__ r,
+                float* __restrict__ C,
                 float* __restrict__ part, int h, int w, size_t he, int sf,
                 float lam) {
   __shared__ float sh_r[MAX_THREADS];
@@ -140,15 +139,10 @@ prologue_kernel(const float* __restrict__ F, const float* __restrict__ R0,
     build_c<1>(F, he, i, j, h, w, lam, sf, c);
 #pragma unroll
     for (int d = 0; d < 9; ++d) C[d * hw + o] = c[d];
-    float rv;
-    if (GIVEN) {
-      rv = b[o];
-    } else {
-      auto X = [&](int a, int q) { return at<1>(x0, a, q, h, w); };
-      float mx = stencil(c, X, i, j);
-      if (sf == 4) mx += F[F_KTW * he + o] * tile_sum(X, i, j, 4);
-      rv = rhs_at<1>(F, R0, he, i, j, h, w, lam) - mx;
-    }
+    auto X = [&](int a, int q) { return at<1>(x0, a, q, h, w); };
+    float mx = stencil(c, X, i, j);
+    if (sf == 4) mx += F[F_KTW * he + o] * tile_sum(X, i, j, 4);
+    const float rv = rhs_at<1>(F, R0, he, i, j, h, w, lam) - mx;
     x[o] = x0[o];
     r[o] = rv;
     rr = rv * rv;
@@ -327,29 +321,23 @@ int combine_std(const double* g, int n, float* scal, float tol2, int max_iter,
 // Shapes, per shard: h x w interior rows; a halo plane is (h + 2) x w and
 // is passed as a pointer to its row 0, he = (h + 2) * w floats separating
 // the planes of a halo stack. F: 11 halo planes (P11..P33, fwd_x, bwd_x,
-// fwd_y, bwd_y, ktw); R0: 4 halo planes (QB1, QB2, QB3, z0t) or null when
-// `given`; x0: a halo plane, or with `given` an (h, w) plane; b: (h, w) or
-// null; invd: a halo plane or null (jacobi = 0). Outputs, allocated by the
+// fwd_y, bwd_y, ktw); R0: 4 halo planes (QB1, QB2, QB3, z0t); x0: a halo
+// plane; invd: a halo plane or null (jacobi = 0). Outputs, allocated by the
 // caller: x (h, w), r (halo plane), C (9, h, w), part (3 * blocks), own (2
 // doubles). Every function returns a cudaError_t.
 extern "C" int srps_shard_prologue(const void* F, const void* R0,
-                                   const void* x0, const void* b,
-                                   const void* invd, void* x, void* r,
-                                   void* C, void* part, void* own, int h,
-                                   int w, int sf, float lam, int bx, int by,
-                                   int jacobi, int given, void* stream) {
-  if ((jacobi != 0) != (invd != nullptr) || (given != 0) != (b != nullptr) ||
-      (!given && R0 == nullptr))
+                                   const void* x0, const void* invd, void* x,
+                                   void* r, void* C, void* part, void* own,
+                                   int h, int w, int sf, float lam, int bx,
+                                   int by, int jacobi, void* stream) {
+  if ((jacobi != 0) != (invd != nullptr) || R0 == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Geo g = geo(h, w, bx, by);
   const size_t he = (size_t)(h + 2) * w;
-  auto kern = &prologue_kernel<false, false>;
-  if (jacobi && given) kern = &prologue_kernel<true, true>;
-  if (jacobi && !given) kern = &prologue_kernel<true, false>;
-  if (!jacobi && given) kern = &prologue_kernel<false, true>;
+  auto kern = jacobi ? &prologue_kernel<true> : &prologue_kernel<false>;
   kern<<<g.grid, g.block, 0, st>>>(
-      (const float*)F, (const float*)R0, (const float*)x0, (const float*)b,
+      (const float*)F, (const float*)R0, (const float*)x0,
       (const float*)invd, (float*)x, (float*)r, (float*)C, (float*)part, h,
       w, he, sf, lam);
   SRPS_CHECK();

@@ -18,11 +18,10 @@ One process drives every shard:
 
 The three loops, :func:`cg_sharded`, :func:`cg_sharded_cgs` and
 :func:`cg_sharded_jacobi`, keep the JAX recurrences, stopping rules and
-guarded divisions. With ``b_residual=None`` r0 = rhs - M x0 comes from the
-per-shard prologue (the route of ``cg_sharded_pallas_*``); with
-``b_residual`` given, r0 = b (the route of ``shard_cg.cg_sharded*``). Each
-launches max_iter + 1 iterations with the ``active`` flag on the device and
-reads nothing back to the host. The per-shard steps are those of
+guarded divisions; r0 = rhs - M x0 comes from the per-shard prologue (the
+route of ``cg_sharded_pallas_*``). Each launches max_iter + 1 iterations
+with the ``active`` flag on the device and reads nothing back to the host.
+The per-shard steps are those of
 :mod:`.shard_kernels`: the CUDA kernels of ``csrc/shard_cg.cu`` on a CUDA
 shard, their plain versions on a CPU shard (``plain=True``: the plain
 versions on every shard).
@@ -121,7 +120,7 @@ def gather_rows(bands: Sequence[torch.Tensor], device) -> torch.Tensor:
 
 
 def _shards(mesh, x0, op, gm, ktw, z0t, *, sf, lam, tol, max_iter, cgs,
-            b_residual, invd, block):
+            invd, block):
     """The per-shard operands and state of one sharded solve."""
     h, w = x0.shape
     n = mesh.size
@@ -134,17 +133,13 @@ def _shards(mesh, x0, op, gm, ktw, z0t, *, sf, lam, tol, max_iter, cgs,
               "P23": op.P23, "P33": op.P33, "fwd_x": gm[0], "bwd_x": gm[1],
               "fwd_y": gm[2], "bwd_y": gm[3], "ktw": ktw}
     F = scatter_rows(torch.stack([fields[k] for k in F_ROWS]), mesh, True)
-    given = b_residual is not None
-    none = [None] * n
-    R0 = none if given else scatter_rows(
-        torch.stack([op.QB1, op.QB2, op.QB3, z0t]), mesh, True)
-    X0 = scatter_rows(x0, mesh, not given)
-    B = scatter_rows(b_residual, mesh, False) if given else none
-    INVD = none if invd is None else scatter_rows(invd, mesh, True)
+    R0 = scatter_rows(torch.stack([op.QB1, op.QB2, op.QB3, z0t]), mesh, True)
+    X0 = scatter_rows(x0, mesh, True)
+    INVD = [None] * n if invd is None else scatter_rows(invd, mesh, True)
     return [sk.new_shard(n, device=dev, h=hb, w=w, sf=sf, lam=lam,
                          tol2=tol_squared(tol), max_iter=max_iter,
                          block=tuple(block), cgs=cgs, F=F[i], R0=R0[i],
-                         x0=X0[i], b=B[i], invd=INVD[i])
+                         x0=X0[i], invd=INVD[i])
             for i, dev in enumerate(mesh.devices)]
 
 
@@ -160,12 +155,11 @@ def _finish(shards, x0):
     return x, iters.to(x0.device), r1.to(x0.device)
 
 
-def _cg_std(mesh, x0, op, gm, ktw, z0t, *, sf, lam, tol, max_iter,
-            b_residual, invd, block, plain):
+def _cg_std(mesh, x0, op, gm, ktw, z0t, *, sf, lam, tol, max_iter, invd,
+            block, plain):
     ops = sk.PLAIN if plain else sk.KERNELS
     shards = _shards(mesh, x0, op, gm, ktw, z0t, sf=sf, lam=lam, tol=tol,
-                     max_iter=max_iter, cgs=False, b_residual=b_residual,
-                     invd=invd, block=block)
+                     max_iter=max_iter, cgs=False, invd=invd, block=block)
     for s in shards:
         ops.prologue(s)
     exchange_halos([s.r for s in shards])
@@ -184,42 +178,39 @@ def _cg_std(mesh, x0, op, gm, ktw, z0t, *, sf, lam, tol, max_iter,
 
 
 def cg_sharded(mesh: RowMesh, x0, op, gm, ktw, z0t, *, sf: int, lam: float,
-               tol: float = 1e-9, max_iter: int = 100, b_residual=None,
-               block=(256, 4), plain: bool = False):
+               tol: float = 1e-9, max_iter: int = 100, block=(256, 4),
+               plain: bool = False):
     """Warm-started reference-semantics CG over the row shards of ``mesh``
     (JAX ``shard_cg.cg_sharded`` / ``shard_pallas.cg_sharded_pallas_std``).
     Whole-grid (h, w) inputs on any device; ``op`` has P11..P33 and
     QB1..QB3, ``gm`` the 4 gradient masks. Returns ``(x, iterations,
     <r, r>)`` on x0's device."""
     return _cg_std(mesh, x0, op, gm, ktw, z0t, sf=sf, lam=lam, tol=tol,
-                   max_iter=max_iter, b_residual=b_residual, invd=None,
-                   block=block, plain=plain)
+                   max_iter=max_iter, invd=None, block=block, plain=plain)
 
 
 def cg_sharded_jacobi(mesh: RowMesh, x0, invd, op, gm, ktw, z0t, *, sf: int,
                       lam: float, tol: float = 1e-9, max_iter: int = 100,
-                      b_residual=None, block=(256, 4), plain: bool = False):
+                      block=(256, 4), plain: bool = False):
     """Jacobi-preconditioned CG over the row shards (JAX
     ``shard_cg.cg_sharded_jacobi``, ``cg_sharded_pallas_std(invd=...)``):
     p = invd r + beta p, rz drives alpha and beta, <r, r> the stop test, at
     every sf. ``invd = 1 / diag(M)``, (h, w). Returns ``(x, iterations,
     <r, r>)``."""
     return _cg_std(mesh, x0, op, gm, ktw, z0t, sf=sf, lam=lam, tol=tol,
-                   max_iter=max_iter, b_residual=b_residual, invd=invd,
-                   block=block, plain=plain)
+                   max_iter=max_iter, invd=invd, block=block, plain=plain)
 
 
 def cg_sharded_cgs(mesh: RowMesh, x0, op, gm, ktw, z0t, *, sf: int,
                    lam: float, tol: float = 1e-9, max_iter: int = 100,
-                   b_residual=None, block=(256, 4), plain: bool = False):
+                   block=(256, 4), plain: bool = False):
     """Chronopoulos-Gear CG over the row shards (JAX
     ``shard_cg.cg_sharded_cgs``, ``cg_sharded_pallas_cgs``): one sweep,
     one stacked (r, w, s) halo exchange and one gathered (gamma, delta) per
     iteration. Returns ``(x, iterations, gamma)``."""
     ops = sk.PLAIN if plain else sk.KERNELS
     shards = _shards(mesh, x0, op, gm, ktw, z0t, sf=sf, lam=lam, tol=tol,
-                     max_iter=max_iter, cgs=True, b_residual=b_residual,
-                     invd=None, block=block)
+                     max_iter=max_iter, cgs=True, invd=None, block=block)
     for s in shards:
         ops.prologue(s)
     exchange_halos([s.rws[0] for s in shards])

@@ -14,9 +14,9 @@ the steps in this order, exchanging halo rows and gathering the shards'
 sums in between:
 
 * :func:`prologue` (kernel 10): the 9 stencil planes C from the fields with
-  their halo rows, ``x = x0``, ``r0 = rhs - M x0`` (or ``r0 = b`` given),
-  the sums ``<r0, r0>`` and, under Jacobi, ``rz0``; for CGS then
-  :func:`cgs_w0`: ``w0 = M r0`` and the sums ``gamma0``, ``delta0``;
+  their halo rows, ``x = x0``, ``r0 = rhs - M x0``, the sums ``<r0, r0>``
+  and, under Jacobi, ``rz0``; for CGS then :func:`cgs_w0`: ``w0 = M r0``
+  and the sums ``gamma0``, ``delta0``;
 * :func:`step_a` (kernel 12): the combine of the gathered sums, then
   ``p = z + beta p_old`` (``z = invd r`` under Jacobi, else r), ``w = M p``
   and ``<p, w>``; p's halo rows are recomputed from r's, so only r is
@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from types import SimpleNamespace
 from typing import Optional
 
@@ -64,10 +65,9 @@ F64 = torch.float64
 class Shard:
     """One row band of a sharded depth CG on ``device``. ``F`` (11 halo
     planes: P11..P33, fwd_x, bwd_x, fwd_y, bwd_y, ktw), ``R0`` (4 halo
-    planes: QB1, QB2, QB3, z0t; None with ``b``), ``x0`` (a halo plane, or
-    (h, w) with ``b``), ``b`` ((h, w) given residual, or None) and ``invd``
-    (a halo plane under Jacobi, else None) are the operands; the rest is
-    the state :func:`new_shard` allocates."""
+    planes: QB1, QB2, QB3, z0t), ``x0`` (a halo plane) and ``invd`` (a halo
+    plane under Jacobi, else None) are the operands; the rest is the state
+    :func:`new_shard` allocates."""
 
     device: torch.device
     h: int
@@ -79,9 +79,8 @@ class Shard:
     block: tuple
     cgs: bool
     F: torch.Tensor
-    R0: Optional[torch.Tensor]
+    R0: torch.Tensor
     x0: torch.Tensor
-    b: Optional[torch.Tensor]
     invd: Optional[torch.Tensor]
     x: torch.Tensor = None
     C: torch.Tensor = None
@@ -177,15 +176,11 @@ def prologue_plain(sh: Shard) -> None:
     op = SimpleNamespace(P11=F[0], P12=F[1], P13=F[2], P22=F[3], P23=F[4],
                          P33=F[5])
     sh.C.copy_(inner(build_c_planes(op, gm, F[10], sh.lam, sh.sf, row0=-1)))
-    if sh.b is not None:
-        sh.x.copy_(sh.x0)
-        r = sh.b
-    else:
-        sh.x.copy_(inner(sh.x0))
-        R0 = sh.R0
-        qb = SimpleNamespace(QB1=R0[0], QB2=R0[1], QB3=R0[2])
-        rhs = inner(depth_rhs_fields(qb, gm, R0[3], sh.lam))
-        r = rhs - halo_matvec(sh.C, sh.x0, _ktw(sh), sh.sf)
+    sh.x.copy_(inner(sh.x0))
+    R0 = sh.R0
+    qb = SimpleNamespace(QB1=R0[0], QB2=R0[1], QB3=R0[2])
+    rhs = inner(depth_rhs_fields(qb, gm, R0[3], sh.lam))
+    r = rhs - halo_matvec(sh.C, sh.x0, _ktw(sh), sh.sf)
     r_plane = sh.rws[0] if sh.cgs else sh.r
     inner(r_plane).copy_(r)
     rr = _dot(r, r)
@@ -323,14 +318,16 @@ def cgs_step_plain(sh: Shard, k: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
-    """The built kernel library with its C signatures declared."""
+    """The built kernel library with its C signatures declared, once per
+    process (every shard step of a solve calls it)."""
     from .. import native
 
     lib = native.load("shard_cg")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "srps_shard_prologue": [vp] * 10 + [ci, ci, ci, cf] + [ci] * 4 + [vp],
+        "srps_shard_prologue": [vp] * 9 + [ci, ci, ci, cf] + [ci] * 3 + [vp],
         "srps_shard_cgs_w0": [vp] * 5 + [ci] * 5 + [vp],
         "srps_shard_step_a": [vp, ci] + [vp] * 10 + [ci, ci, ci, cf]
                              + [ci] * 5 + [vp],
@@ -352,10 +349,9 @@ def _row0(t: torch.Tensor) -> int:
     return t.data_ptr() + t.element_size() * t.shape[-1]
 
 
-def _ptr(t: Optional[torch.Tensor], halo: bool = True):
-    if t is None:
-        return None
-    return _row0(t) if halo else t.data_ptr()
+def _ptr(t: Optional[torch.Tensor]):
+    """:func:`_row0` of a halo plane, or NULL for None."""
+    return None if t is None else _row0(t)
 
 
 def _launch(sh: Shard, name: str, *args) -> None:
@@ -375,13 +371,11 @@ def prologue(sh: Shard) -> None:
     """Kernel 10: the C planes, x = x0, r0 and its sums (see module)."""
     if sh.device.type == "cpu":
         return prologue_plain(sh)
-    given = sh.b is not None
     r_plane = sh.rws if sh.cgs else sh.r
-    _launch(sh, "srps_shard_prologue", _row0(sh.F), _ptr(sh.R0),
-            _ptr(sh.x0, not given), _ptr(sh.b, False), _ptr(sh.invd),
-            sh.x.data_ptr(), _row0(r_plane), sh.C.data_ptr(),
-            sh.part.data_ptr(), sh.own.data_ptr(), sh.h, sh.w, sh.sf,
-            float(sh.lam), *sh.block, int(sh.invd is not None), int(given))
+    _launch(sh, "srps_shard_prologue", _row0(sh.F), _row0(sh.R0),
+            _row0(sh.x0), _ptr(sh.invd), sh.x.data_ptr(), _row0(r_plane),
+            sh.C.data_ptr(), sh.part.data_ptr(), sh.own.data_ptr(), sh.h,
+            sh.w, sh.sf, float(sh.lam), *sh.block, int(sh.invd is not None))
     prologue.launches += 1
 
 
