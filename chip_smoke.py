@@ -13,13 +13,26 @@ falls back to the CPU or to a plain version):
    operators built by the port from a seeded Lambertian dataset: the C
    planes, iteration counts, x after 2 and 12 iterations and the tracked
    energy, with the tolerances of tests/test_torch_stencil_cg.py, and the
-   time per CG iteration of both;
-3b. the lane-batched stencil CG (B = 4 seeds at 960 x 1280, sf = 2): each
-   lane bit for bit its B = 1 launch, the batch against the plain version,
-   ms per CG iteration of the batch and of four solo launches;
-3c. the Chronopoulos-Gear CG kernel against its plain version on the three
-   grids of phase 3 (``cg_vs_plain``), 4 seeds, from the main path's warm
-   start and from a cold start x0 = 0, at two thread-block shapes:
+   time per CG iteration of both; on phase 3's grids and on 242 x 322
+   (partial tiles on both edges at each block shape), at the thread blocks
+   256 x 4, 32 x 16 and 30 x 3 (BLOCKS). The stencil and CGS kernels are
+   persistent (one cooperative launch per CG solve, its CTA count and
+   layout chosen by the C entry from the card's occupancy): phases 3 to 3e
+   check that every solve made one device launch (as the C entry reports
+   it), that a repeated run is bit-equal at each block shape, that 960 x
+   1280 at B = 1 runs on chip and B = 4 and 2176 x 3840 in device memory,
+   and print per grid the layout taken, the CTAs, the barriers per
+   iteration, the shared bytes and the registers and spills (the launch's
+   attributes and nvcc's ``-Xptxas -v`` report); at 960 x 1280 both
+   kernels in the device layout too, forced, bit for bit their on-chip
+   runs, timed against them in turns (``layouts_bit_equal``);
+3b. the lane-batched stencil CG (B = 4 seeds at 960 x 1280, sf = 2, the
+   device layout): each lane bit for bit its B = 1 launch (the on-chip
+   layout), the batch against the plain version, ms per CG iteration of
+   the batch and of four solo launches;
+3c. the Chronopoulos-Gear CG kernel against its plain version on the grids
+   of phase 3 (``cg_vs_plain``), 4 seeds, from the main path's warm
+   start and from a cold start x0 = 0, at the thread blocks of BLOCKS:
    iteration counts, the update x - x0 and gamma = <r, r> after 2 and 12
    iterations (bounds at UPD_BOUND and RES_BOUND), B = 4 lanes bit for bit
    their solo launches;
@@ -29,12 +42,14 @@ falls back to the CPU or to a plain version):
    phase 3's bound at every cap;
 3e. 1088 x 1920, sf = 2 (the grid the TPU serves with
    ``_kernel_vmem_hybrid_stencil``): the stencil CG plain with phase 3's
-   checks and Jacobi with phase 3d's;
+   checks and Jacobi with phase 3d's; the CGS kernel there, and both
+   kernels at 2176 x 3840 (after 3f's 4K part), timed with the update and
+   residual held at UPD_BOUND / RES_BOUND (``time_large``);
 3f. the direct mask-gated matvec CG (``direct_cg``) the same way on the
    grids of phase 3 and at 2176 x 3840, sf = 2 (bench.py's 4K grid), in its
    three forms: r0 in the kernel with the tracked energy, the same with its
-   in-sweep Jacobi PCG, and given its residual, at phase 3c's two block
-   shapes and at 30 x 3, which splits sf = 4 tiles; then the direct and the
+   in-sweep Jacobi PCG, and given its residual, at phase 3c's block
+   shapes (30 x 3 splits sf = 4 tiles); then the direct and the
    stencil operator against each other on the card (matvecs to f32
    roundoff, the two kernels' CGs within phase 3c's bounds);
 4. the main path through the CLI entry point on a 960 x 1280, n = 20, c = 3,
@@ -73,7 +88,9 @@ falls back to the CPU or to a plain version):
 4i. bench.py's 4K configuration (2176 x 3840, sf = 2, n = 8, c = 3) through
    ``runtime.solver.solve`` with ``"direct"`` and with ``"stencil"``, in
    turns: a finite depth, the stopping rule, outer iterations, ms per
-   outer iteration and the peak of allocated device memory;
+   outer iteration and the peak of allocated device memory; then the
+   ``"stencil"`` solve once more with the stencil CG's plain version on the
+   card, its outer iterations and energies printed beside the kernel's;
 3g. the row-shard kernels (``csrc/shard_cg.cu``) on 4 shards of the card
    against their plain versions on the same shards, on phase 3's grids and
    at 1088 x 1920 sf = 2, in the standard, CGS and Jacobi forms, from the
@@ -159,10 +176,6 @@ JACOBI_FLOPS = {"scaled": {"prologue": 184, "iteration": 27},
 # Z0U (2, stencil only) and x0 in, x out.
 # Jacobi adds invd.
 STENCIL_PLANES, CGS_PLANES, JACOBI_PLANES = 19, 17, 20
-# f32 planes one iteration of the kernels' design streams (the bound PERF.md
-# quotes per CG iteration): 9 C planes and 10 state planes read or written;
-# the PCG form reads invd in both sweeps.
-ITERATION_PLANES = {"plain": 19, "scaled": 19, "pcg": 21}
 # The direct-matvec CG (csrc/direct_cg.cu), counted from _matvec_band: the
 # matvec about 42 flops a pixel (gradients 10, t1..t3 15, the adjoints 10,
 # the tile sum and the sums 7) and the p update, dots and vector updates 8
@@ -213,14 +226,13 @@ DIRECT_REPLACES = {
 
 
 def bound(hw: int, lanes: int, iters: int, planes: int, flops: dict,
-          sf: int, stream_planes: int = ITERATION_PLANES["plain"],
-          per: int = None):
+          sf: int, stream_planes: int, per: int = None):
     """``(ms, "bytes" or "operations", stream_ms)`` per CG iteration: the
     least time the card could take for the function (inputs read once,
     outputs written once; the operations of the ``iters`` iterations this
     run's data needed), spread over ``per`` iterations (the launched ones,
     by default ``iters``), and the per-iteration streaming time of the
-    kernels' design."""
+    kernel's design, ``stream_planes`` f32 planes."""
     t_bytes = planes * 4 * hw * lanes / HBM_BYTES_PER_S
     per_iter = flops["iteration"] + (2 if sf == 4 else 0)
     t_ops = hw * lanes * (flops["prologue"] + iters * per_iter) \
@@ -228,6 +240,113 @@ def bound(hw: int, lanes: int, iters: int, planes: int, flops: dict,
     ms = 1e3 * max(t_bytes, t_ops) / (per or iters)
     stream = 1e3 * stream_planes * 4 * hw * lanes / HBM_BYTES_PER_S
     return ms, "bytes" if t_bytes >= t_ops else "operations", stream
+
+
+# f32 planes one CG iteration of the persistent kernels (csrc/stencil_cg.cu,
+# csrc/cgs_cg.cu) streams, by layout: the stencil CG's phase A reads 9 C, r
+# and p_old (PCG invd) and writes p, phase B reads p and r (PCG invd) and
+# writes r; in device memory w is written and read and x read and written
+# too. The CGS reads 9 C and one (r, w, s) set and writes the other; in
+# device memory x and p are read and written too. sf = 4 reads ktw.
+def persistent_planes(kernel: str, form, onchip: bool, sf: int) -> int:
+    planes = 15 if onchip else 19
+    if kernel == "stencil_cg" and form == "pcg":
+        planes += 2
+    return planes + (1 if sf == 4 else 0)
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers and spill bytes of each persistent kernel instance of
+    ``csrc/<name>.cu`` from nvcc's ``-Xptxas -v`` report: {"cg_kernel<mode,
+    onchip,bx,by>" or "cgs_kernel<onchip,bx,by>": {"registers",
+    "spill_stores", "spill_loads"}} (bx, by: the block compiled in, or 0,
+    0)."""
+    import re
+
+    from srmeetsps_cuda_tpu_torch import native
+
+    out, cur = {}, None
+    for line in native.build_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for |$)", line)
+        if m:
+            k = re.search(r"(cgs_kernel|cg_kernel)I(?:Li(\d)E)?Lb([01])E"
+                          r"Li(\d+)ELi(\d+)EE", m.group(1))
+            cur = None if k is None else (
+                k.group(1) + "<" + ",".join(
+                    g for g in k.groups()[1:] if g is not None) + ">")
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
+# The thread blocks the kernels are held at: the CLI's default, another
+# whole number of warps, and 30 x 3 (90 threads, no whole number of warps,
+# whose rows and columns split sf = 4 tiles).
+BLOCKS = ((256, 4), (32, 16), (30, 3))
+
+
+def expect_layout(infos: dict, want: str, where: str) -> None:
+    """Raise unless the persistent launches of the two standard blocks in
+    ``infos`` (block -> last_launch) took layout ``want``."""
+    for block in BLOCKS[:2]:
+        if infos[block]["layout"] != want:
+            raise AssertionError(f"{where} block {block}: "
+                                 f"{infos[block]['layout']} layout, expected "
+                                 f"{want}")
+
+
+def one_launch(wrapper, where: str) -> dict:
+    """The last launch of a persistent kernel's ``wrapper``, which must
+    have been one device launch for the CG solve."""
+    info = wrapper.last_launch
+    if info is None or info["device_launches"] != 1:
+        raise AssertionError(f"{where}: {info and info['device_launches']} "
+                             "device launches for one CG solve")
+    return info
+
+
+def launch_summary(kernel: str, form, infos: dict, sf: int) -> tuple:
+    """``(text, JSON fields)`` of the launches of one grid, per block
+    shape: the layout, the CTAs, barriers per iteration, shared bytes,
+    registers and local bytes at run time, and ptxas's registers and
+    spills for the kernel instance that ran."""
+    mode = {None: 0, "scaled": 1, "pcg": 2}.get(form, 0)
+    report = ptxas_report(kernel)
+    texts, fields = [], {}
+    for (bx, by), info in infos.items():
+        shape = f"{bx},{by}" if (bx, by) in ((256, 4), (32, 16)) else "0,0"
+        inst = (f"cgs_kernel<{int(info['onchip'])},{shape}>"
+                if kernel == "cgs_cg"
+                else f"cg_kernel<{mode},{int(info['onchip'])},{shape}>")
+        px = report.get(inst, {})
+        planes = persistent_planes(kernel, form, info["onchip"], sf)
+        texts.append(
+            f"block {bx}x{by}: {info['layout']} layout, G {info['ctas']} "
+            f"({info['resident_ctas_per_sm']} resident per SM x "
+            f"{info['sms']} SMs), {info['barriers_per_iteration']} "
+            f"barrier(s) per iteration, {info['shared_bytes']} B shared, "
+            f"{info['registers']} registers / {info['local_bytes']} B local;"
+            f" ptxas {inst}: {px.get('registers')} registers, "
+            f"{px.get('spill_stores')} / {px.get('spill_loads')} B spill "
+            f"stores / loads; stream {planes} planes")
+        fields[f"{bx}x{by}"] = {
+            "layout": info["layout"], "ctas": info["ctas"],
+            "barriers_per_iteration": info["barriers_per_iteration"],
+            "shared_bytes": info["shared_bytes"],
+            "registers": info["registers"],
+            "local_bytes": info["local_bytes"], "ptxas": px,
+            "stream_planes": planes}
+    return "; ".join(texts), fields
 
 
 def gpu_label() -> str:
@@ -294,7 +413,7 @@ def kernel_vs_plain(label, shapes):
         prob, st, op = depth_operator(data, dev)
         args = (st.z, op, prob.gm, prob.ktw, prob.z0t, prob.z0u)
         const = float(op.const)
-        errs = {}
+        errs, infos = {}, {}
         for cap in (2, 12, 100):
             before = sc.stencil_cg.launches
             x, k, _, e, C = sc.stencil_cg(*args, sf=sf, lam=1.0,
@@ -302,6 +421,7 @@ def kernel_vs_plain(label, shapes):
             torch.cuda.synchronize()
             if sc.stencil_cg.launches != before + 1:
                 raise AssertionError("stencil_cg did not count its launch")
+            infos[256, 4] = one_launch(sc.stencil_cg, f"{h}x{w} cap {cap}")
             px, pk, _, pe, pC = sc.stencil_cg_plain(
                 *args, sf=sf, lam=1.0, max_iter=cap, planes=True)
             # sf = 1 puts all of KT^T KT on the diagonal and converges
@@ -325,17 +445,26 @@ def kernel_vs_plain(label, shapes):
                         1e-6 * abs(const))
             errs[cap] = float((x - px).abs().max())
             errs_c = float((C - pC).abs().max())
-        # Another thread-block shape (--blockx/--blocky): other partial sums,
-        # the same bounds.
-        xb, kb, _, _ = sc.stencil_cg(*args, sf=sf, lam=1.0, max_iter=12,
-                                     block=(32, 16))
+        # Other thread-block shapes (--blockx/--blocky): other partial sums,
+        # the same bounds; 30 x 3 is no whole number of warps.
         px, pk, _, _ = sc.stencil_cg_plain(*args, sf=sf, lam=1.0,
                                            max_iter=12)
-        if int(kb) != int(pk):
-            raise AssertionError(f"block 32x16: iterations {int(kb)} vs "
-                                 f"{int(pk)}")
-        check_close(f"x {h}x{w} sf={sf} block 32x16", xb.cpu(), px.cpu(),
-                    X_TOL[12], X_TOL[12])
+        for block in BLOCKS[1:]:
+            xb, kb, _, _ = sc.stencil_cg(*args, sf=sf, lam=1.0, max_iter=12,
+                                         block=block)
+            infos[block] = one_launch(sc.stencil_cg,
+                                      f"{h}x{w} block {block}")
+            if int(kb) != int(pk):
+                raise AssertionError(f"block {block}: iterations {int(kb)} "
+                                     f"vs {int(pk)}")
+            check_close(f"x {h}x{w} sf={sf} block {block}", xb.cpu(),
+                        px.cpu(), X_TOL[12], X_TOL[12])
+        if (h, w) == (960, 1280):
+            expect_layout(infos, "on-chip", f"stencil_cg {h}x{w} B=1")
+        repeat_bit_equal(lambda blk: sc.stencil_cg(*args, sf=sf, lam=1.0,
+                                                   max_iter=12, block=blk),
+                         f"stencil_cg {h}x{w} sf={sf}")
+        launches, fields = launch_summary("stencil_cg", None, infos, sf)
         cap = 100
         run_k = lambda: sc.stencil_cg(*args, sf=sf, lam=1.0, max_iter=cap)  # noqa: E731
         run_p = lambda: sc.stencil_cg_plain(*args, sf=sf, lam=1.0,  # noqa: E731
@@ -344,14 +473,17 @@ def kernel_vs_plain(label, shapes):
                                   cuda_ms(run_p, 2), cuda_ms(run_k, 3))
         ms_k = (t_k1 + t_k2) / 2 / (cap + 1)
         ms_p = (t_p1 + t_p2) / 2 / (cap + 1)
+        main = fields["256x4"]
         b_ms, b_by, s_ms = bound(h * w, 1, int(k), STENCIL_PLANES,
-                                 STENCIL_FLOPS, sf, per=cap + 1)
+                                 STENCIL_FLOPS, sf, main["stream_planes"],
+                                 per=cap + 1)
         print(f"[{label}] stencil_cg {h}x{w} sf={sf}: iterations {int(k)} "
               f"equal; max|dx| at 2/12/101 iterations {errs[2]:.3e} / "
               f"{errs[12]:.3e} / {errs[100]:.3e}; max|dC| {errs_c:.3e}; "
-              f"kernel {ms_k:.4f} ms/CG-iter, plain {ms_p:.4f} ms/CG-iter, "
-              f"bound {b_ms:.5f} ({b_by}), stream bound {s_ms:.4f}",
-              flush=True)
+              f"one device launch per CG solve, repeat bit-equal at "
+              f"{len(BLOCKS)} blocks; kernel {ms_k:.4f} ms/CG-iter, plain "
+              f"{ms_p:.4f} ms/CG-iter, bound {b_ms:.5f} ({b_by}), stream "
+              f"bound {s_ms:.4f}; {launches}", flush=True)
         entries[h, w, sf] = {
             "name": "stencil_cg", "route": "cuda",
             "source": "srmeetsps_cuda_tpu_torch/csrc/stencil_cg.cu",
@@ -359,10 +491,24 @@ def kernel_vs_plain(label, shapes):
                         + ("708" if (h, w) == (1088, 1920) else "403"),
             "max_abs_err": errs[2], "ms": ms_k, "plain_ms": ms_p,
             "bound_ms": b_ms, "bound_by": b_by, "stream_bound_ms": s_ms,
-            "library_ms": None,
+            "library_ms": None, "design": "persistent",
+            "layout": main["layout"], "stream_planes": main["stream_planes"],
+            "launch": fields,
             "unit": f"per CG iteration, {h}x{w} sf {sf}, {cap + 1} "
                     "iterations launched"}
     return entries
+
+
+def repeat_bit_equal(run, what):
+    """``run(block)`` twice at each of BLOCKS: every output bit for bit
+    the same."""
+    import torch
+
+    for block in BLOCKS:
+        a, b = run(block), run(block)
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"{what} block {block}: a repeated run "
+                                 "differs")
 
 
 def stacked_lanes(h, w, sf, seeds, device):
@@ -403,8 +549,10 @@ def stencil_lanes(label, entry, lanes, stacked):
     for cap in (2, 12, 100):
         xb, kb, _, eb = sc.stencil_cg(*stacked, sf=sf, lam=1.0,
                                       max_iter=cap)
+        batch = one_launch(sc.stencil_cg, f"B={B} cap {cap}")
         for b, ln in enumerate(lanes):
             x1, k1, _, e1 = sc.stencil_cg(*ln, sf=sf, lam=1.0, max_iter=cap)
+            solo = one_launch(sc.stencil_cg, f"lane {b} cap {cap}")
             if not (torch.equal(xb[b], x1) and int(kb[b]) == int(k1)
                     and torch.equal(eb[b], e1)):
                 raise AssertionError(f"lane {b} at cap {cap} differs from "
@@ -435,18 +583,160 @@ def stencil_lanes(label, entry, lanes, stacked):
     t_b1, t_s1, t_p, t_s2, t_b2 = (cuda_ms(run_b, 3), cuda_ms(run_solo, 3),
                                    cuda_ms(run_p, 1), cuda_ms(run_solo, 3),
                                    cuda_ms(run_b, 3))
+    for info, want in ((batch, "device"), (solo, "on-chip")):
+        if info["layout"] != want:
+            raise AssertionError(f"B={B}: {info['layout']} layout, expected "
+                                 f"{want}")
     n_it = int(kb[0])
     ms_b = (t_b1 + t_b2) / 2 / n_it
     ms_s = (t_s1 + t_s2) / 2 / n_it
-    b_ms, b_by, _ = bound(h * w, B, n_it, STENCIL_PLANES, STENCIL_FLOPS, sf)
+    planes = persistent_planes("stencil_cg", None, batch["onchip"], sf)
+    b_ms, b_by, s_ms = bound(h * w, B, n_it, STENCIL_PLANES, STENCIL_FLOPS,
+                             sf, planes)
     entry["batched"] = {"lanes": B, "ms": ms_b, "solo_ms": ms_s,
                         "plain_ms": t_p / n_it, "bound_ms": b_ms,
-                        "bound_by": b_by}
+                        "bound_by": b_by, "stream_bound_ms": s_ms,
+                        "layout": batch["layout"], "stream_planes": planes,
+                        "solo_layout": solo["layout"]}
     print(f"[{label}] stencil_cg B={B} lanes {h}x{w} sf={sf}: every lane "
-          f"bit-equal to its solo launch at caps 2/12/100, batch vs plain "
-          f"within X_TOL/E_RTOL; batch {ms_b:.4f} ms/CG-iter vs 4 solo "
-          f"launches {ms_s:.4f} ms/CG-iter, plain {t_p / n_it:.4f}",
-          flush=True)
+          f"({solo['layout']} layout) bit-equal to its lane in the batch "
+          f"({batch['layout']} layout, G {batch['ctas']}, one device launch)"
+          f" at caps 2/12/100, batch vs plain within X_TOL/E_RTOL; batch "
+          f"{ms_b:.4f} ms/CG-iter vs 4 solo launches {ms_s:.4f} ms/CG-iter, "
+          f"plain {t_p / n_it:.4f}, stream bound {s_ms:.4f}", flush=True)
+
+
+def layouts_bit_equal(label, lanes, entries):
+    """Phase 3: the persistent kernels at 960 x 1280 sf 2, B = 1, where the
+    C entry takes the on-chip layout, with the device layout forced too:
+    the standard CG, its scaled Jacobi form and the CGS CG, each at the two
+    standard blocks and caps 12 and 100, bit for bit the on-chip run; then
+    ms per CG iteration of both layouts in turns (on chip, device, device,
+    on chip) at the default block, added to ``entries[name]`` as
+    ``device_layout_ms``."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+
+    sf, ln = 2, lanes[0]
+    runs = {"stencil_cg": (sc.stencil_cg, ln[:6], {}),
+            "stencil_cg jacobi scaled": (sc.stencil_cg, ln[:6],
+                                         {"invd": ln[6]}),
+            "cgs_cg": (cg.cgs_cg, ln[:5], {})}
+    texts = []
+    for name, (kernel, args, kw) in runs.items():
+        for block, cap in itertools.product(BLOCKS[:2], (12, 100)):
+            out = {}
+            for layout, want in ((None, "on-chip"), ("device", "device")):
+                out[want] = kernel(*args, sf=sf, lam=1.0, max_iter=cap,
+                                   block=block, layout=layout, **kw)
+                info = one_launch(kernel, f"{name} layout {want}")
+                if info["layout"] != want:
+                    raise AssertionError(f"{name} block {block}: "
+                                         f"{info['layout']} layout, "
+                                         f"expected {want}")
+            if not all(torch.equal(a, b) for a, b in zip(out["on-chip"],
+                                                         out["device"])):
+                raise AssertionError(f"{name} block {block} cap {cap}: the "
+                                     "device layout differs from on chip")
+        def on():
+            return kernel(*args, sf=sf, lam=1.0, max_iter=100, **kw)
+
+        def dev():
+            return kernel(*args, sf=sf, lam=1.0, max_iter=100,
+                          layout="device", **kw)
+
+        t_o1, t_d1, t_d2, t_o2 = (cuda_ms(on, 3), cuda_ms(dev, 3),
+                                  cuda_ms(dev, 3), cuda_ms(on, 3))
+        n_it = 101  # launched
+        ms_on, ms_dev = (t_o1 + t_o2) / 2 / n_it, (t_d1 + t_d2) / 2 / n_it
+        entries[name]["device_layout_ms"] = ms_dev
+        entries[name]["onchip_layout_ms"] = ms_on
+        texts.append(f"{name} {ms_on:.4f} on chip / {ms_dev:.4f} device "
+                     f"(turns {t_o1 / n_it:.4f} {t_d1 / n_it:.4f} "
+                     f"{t_d2 / n_it:.4f} {t_o2 / n_it:.4f})")
+    print(f"[{label}] layouts at 960x1280 sf=2 B=1: device layout bit-equal "
+          f"to on chip at blocks 256x4 and 32x16, caps 12 and 100; ms per "
+          f"launched CG iteration " + "; ".join(texts), flush=True)
+
+
+def time_large(label, grid, lanes):
+    """The persistent kernels at a grid timed once (4K, and CGS at 1088 x
+    1920): on seed 0's warm start, iteration counts equal to the plain
+    version's, the update and the residual after 2 and 12 iterations
+    within UPD_BOUND / RES_BOUND, one device launch per solve, a repeat
+    bit-equal at each block, the device layout at 4K, and ms per CG
+    iteration of kernel and plain in turns; the energy gap is printed.
+    Returns {name: entry}."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+
+    h, w, sf = grid
+    ln = lanes[0]
+    x0, const = ln[0], float(ln[1].const)
+    runs = {"stencil_cg": (sc.stencil_cg, sc.stencil_cg_plain, ln[:6]),
+            "cgs_cg": (cg.cgs_cg, cg.cgs_cg_plain, ln[:5])}
+    out = {}
+    for name, (kernel, plain, args) in runs.items():
+        if name == "stencil_cg" and grid != (2176, 3840, 2):
+            continue
+        for cap in (2, 12):
+            got = kernel(*args, sf=sf, lam=1.0, max_iter=cap)
+            info = one_launch(kernel, f"{name} {h}x{w} cap {cap}")
+            want = plain(*args, sf=sf, lam=1.0, max_iter=cap)
+            if int(got[1]) != int(want[1]):
+                raise AssertionError(f"{name} {h}x{w} cap {cap}: iterations "
+                                     f"{int(got[1])} vs {int(want[1])}")
+            upd = rel_rms(got[0] - x0, want[0] - x0)
+            gap = abs(float(got[2]) - float(want[2])) / abs(float(want[2]))
+            if upd > UPD_BOUND["warm"][cap] or gap > RES_BOUND["warm"][cap]:
+                raise AssertionError(f"{name} {h}x{w} cap {cap}: update "
+                                     f"{upd:.3e}, residual {gap:.3e}")
+            if cap == 2:
+                max_dx = float((got[0] - want[0]).abs().max())
+        if grid == (2176, 3840, 2) and info["layout"] != "device":
+            raise AssertionError(f"{name} {h}x{w}: {info['layout']} layout, "
+                                 "expected device")
+        energy = (energy_excess(got[3], want[3], const)
+                  if name == "stencil_cg" else None)
+        repeat_bit_equal(lambda blk: kernel(*args, sf=sf, lam=1.0,
+                                            max_iter=12, block=blk),
+                         f"{name} {h}x{w}")
+        cap = 100
+        run_k = lambda: kernel(*args, sf=sf, lam=1.0, max_iter=cap)  # noqa: E731
+        run_p = lambda: plain(*args, sf=sf, lam=1.0, max_iter=cap)  # noqa: E731
+        t_k1, t_p1, t_p2, t_k2 = (cuda_ms(run_k, 3), cuda_ms(run_p, 1),
+                                  cuda_ms(run_p, 1), cuda_ms(run_k, 3))
+        ms_k = (t_k1 + t_k2) / 2 / (cap + 1)
+        ms_p = (t_p1 + t_p2) / 2 / (cap + 1)
+        n_it = int(run_k()[1])
+        planes, flops = ((STENCIL_PLANES, STENCIL_FLOPS) if name == "stencil_cg"
+                         else (CGS_PLANES, CGS_FLOPS))
+        stream = persistent_planes(name, None, info["onchip"], sf)
+        b_ms, b_by, s_ms = bound(h * w, 1, n_it, planes, flops, sf, stream,
+                                 per=cap + 1)
+        launches, fields = launch_summary(name, None, {(256, 4): info}, sf)
+        print(f"[{label}] {name} {h}x{w} sf={sf}: iterations equal; update "
+              f"/ residual gap at caps 2 and 12 within UPD_BOUND / RES_BOUND "
+              f"(cap 12: {upd:.2e} / {gap:.2e})"
+              + ("" if energy is None else
+                 f"; energy gap at cap 12 {energy[0]:.3f} ({energy[1]:.3f} "
+                 "of phase 3's bound, printed)")
+              + f"; repeat bit-equal at {len(BLOCKS)} blocks; kernel "
+              f"{ms_k:.4f} "
+              f"ms/CG-iter, plain {ms_p:.4f}, bound {b_ms:.5f} ({b_by}), "
+              f"stream bound {s_ms:.4f}; {launches}", flush=True)
+        out[name] = {"ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
+                     "bound_by": b_by, "stream_bound_ms": s_ms,
+                     "max_abs_err": max_dx, "cg_iterations": n_it,
+                     "layout": info["layout"], "stream_planes": stream,
+                     "launch": fields,
+                     "unit": f"per CG iteration, {h}x{w} sf {sf}, {cap + 1} "
+                             "iterations launched"}
+    return out
 
 
 def rel_rms(got, want) -> float:
@@ -472,14 +762,13 @@ def cg_vs_plain(label, grids, form: str):
     ``"direct jacobi"``, the same with its in-sweep PCG; ``"direct
     host_r0"``, given its residual b = rhs - M x0) on ``grids``: ``(h, w,
     sf) -> (lanes, stacked)``. Each lane from the main path's warm start and
-    from a cold start x0 = 0, at two thread-block shapes (the direct CG at
-    a third, 30 x 3, whose rows and columns split sf = 4 tiles), against
-    the plain version: iteration counts, the update x - x0 and the reported residual
-    after 2 and 12 iterations (UPD_BOUND, RES_BOUND); C' bit-equal for the
-    stencil Jacobi forms; the tracked energy from the warm start within
-    phase 3's bound at every cap. Then the stacked lanes bit for bit their
-    solo launches, and ms per CG iteration. Returns each grid's JSON entry
-    (without launches)."""
+    from a cold start x0 = 0, at the thread blocks of BLOCKS, against the
+    plain version: iteration counts, the update x - x0 and the reported
+    residual after 2 and 12 iterations (UPD_BOUND, RES_BOUND); C'
+    bit-equal for the stencil Jacobi forms; the tracked energy from the
+    warm start within phase 3's bound at every cap. Then the stacked lanes
+    bit for bit their solo launches, and ms per CG iteration. Returns each
+    grid's JSON entry (without launches)."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
@@ -521,10 +810,12 @@ def cg_vs_plain(label, grids, form: str):
         return tuple(fn(x0, *ln[1:6], invd=ln[6] if "jacobi" in form
                         else None, b=b, with_energy=not host, **kw)) + (None,)
 
-    blocks = ((256, 4), (32, 16)) + (((30, 3),) if direct else ())
+    blocks = BLOCKS
+    persistent = form in ("cgs", "jacobi")
     entries = {}
     for (h, w, sf), (lanes, stacked) in grids.items():
         jform = sc.jacobi_form(sf) if form == "jacobi" else form
+        infos = {}
         name = {"jacobi": f"stencil_cg jacobi {jform}", "cgs": "cgs_cg"}.get(
             form, form.replace("direct", "direct_cg", 1))
         # PCG stops on <r, r> and the CGS on gamma, out of f32's reach at
@@ -553,6 +844,8 @@ def cg_vs_plain(label, grids, form: str):
                     torch.cuda.synchronize()
                     if getattr(kernel, counter) != before + 1:
                         raise AssertionError(f"{where}: launch not counted")
+                    if persistent:
+                        infos[block] = one_launch(kernel, where)
                     if form == "jacobi" and not torch.equal(C, pC):
                         raise AssertionError(
                             f"{where}: C' differs from the plain version's "
@@ -589,7 +882,22 @@ def cg_vs_plain(label, grids, form: str):
                             f"(bound {UPD_BOUND[start][cap]}), relative gap "
                             f"of {res} {gap:.3e} (bound "
                             f"{RES_BOUND[start][cap]})")
+        launches = ""
+        if persistent:
+            pname = "cgs_cg" if form == "cgs" else "stencil_cg"
+            repeat_bit_equal(lambda blk: tuple(
+                t for t in call(kernel, lanes[0], sf=sf, lam=1.0,
+                                max_iter=12, block=blk) if t is not None),
+                f"{name} {h}x{w} sf={sf}")
+            launches, fields = launch_summary(
+                pname, None if form == "cgs" else jform, infos, sf)
+            if form == "cgs" and (h, w) == (960, 1280):
+                expect_layout(infos, "on-chip", f"{name} {h}x{w} B=1")
+            launches = ("; one device launch per CG solve, repeat bit-equal "
+                        f"at {len(BLOCKS)} blocks; " + launches)
         xs, ks, rs, es, _ = call(kernel, stacked, sf=sf, lam=1.0, max_iter=12)
+        if persistent:
+            one_launch(kernel, f"{name} {h}x{w} B={len(lanes)}")
         for b, ln in enumerate(lanes):
             x1, k1, r1, e1, _ = call(kernel, ln, sf=sf, lam=1.0, max_iter=12)
             if not (torch.equal(xs[b], x1) and int(ks[b]) == int(k1)
@@ -611,14 +919,16 @@ def cg_vs_plain(label, grids, form: str):
         if form == "jacobi":
             b_ms, b_by, s_ms = bound(h * w, 1, n_it, JACOBI_PLANES,
                                      JACOBI_FLOPS[jform], sf,
-                                     ITERATION_PLANES[jform], per=cap + 1)
+                                     fields["256x4"]["stream_planes"],
+                                     per=cap + 1)
         elif direct:
             flops, planes, stream = DIRECT_FORMS[form]
             b_ms, b_by, s_ms = bound(h * w, 1, n_it, planes, flops, sf,
                                      stream, per=cap + 1)
         else:
             b_ms, b_by, s_ms = bound(h * w, 1, n_it, CGS_PLANES, CGS_FLOPS,
-                                     sf, per=cap + 1)
+                                     sf, fields["256x4"]["stream_planes"],
+                                     per=cap + 1)
         print(f"[{label}] {name} {h}x{w} sf={sf}: "
               + ("C' bit-equal, " if form == "jacobi" else "")
               + f"iterations equal ({n_it} of seed 0 at cap 100); relative "
@@ -632,7 +942,8 @@ def cg_vs_plain(label, grids, form: str):
               + f"; max|dx| warm cap 2 {max_dx:.3e}; B={len(lanes)} lanes "
               f"bit-equal to solo; kernel {ms_k:.4f} ms/CG-iter, plain "
               f"{ms_p:.4f} ms/CG-iter (per launched iteration), bound "
-              f"{b_ms:.5f} ({b_by}), stream bound {s_ms:.4f}", flush=True)
+              f"{b_ms:.5f} ({b_by}), stream bound {s_ms:.4f}{launches}",
+              flush=True)
         if form == "jacobi":
             source, replaces = "stencil_cg.cu", "pallas_cg_vmem.py:" + (
                 "708" if (h, w) == (1088, 1920) else "403")
@@ -650,6 +961,11 @@ def cg_vs_plain(label, grids, form: str):
             f"{res}_rel_gap": gaps["warm", 2][1], "cg_iterations": n_it,
             "unit": f"per launched CG iteration, {h}x{w} sf {sf}, "
                     f"{cap + 1} launched, {n_it} run"}
+        if persistent:
+            entries[h, w, sf].update(
+                design="persistent", layout=fields["256x4"]["layout"],
+                stream_planes=fields["256x4"]["stream_planes"],
+                launch=fields)
         if direct:
             entries[h, w, sf]["also_replaces"] = [
                 "srmeetsps_cuda_tpu/solve/" + r
@@ -1317,15 +1633,33 @@ def small_input_vs_cpu(label, jacobi=False):
           f"{runs['cpu']}", flush=True)
 
 
-def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True):
+@contextlib.contextmanager
+def plain_stencil_cg():
+    """The main path's stencil CG runs its plain version on the card
+    while this holds (``models.srps.depth_cg`` reads ``stencil_cg`` per
+    call)."""
+    from srmeetsps_cuda_tpu_torch.models import srps
+    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+
+    kernel = srps.stencil_cg
+    srps.stencil_cg = lambda *a, block=None, **k: sc.stencil_cg_plain(*a, **k)
+    try:
+        yield
+    finally:
+        srps.stencil_cg = kernel
+
+
+def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True,
+              plain=False):
     """Phase 4h (and 4i): one solve of ``data`` through
     ``runtime.solver.solve`` with ``cfg``, the launch counts set to 0 just
     before and read just after, and the peak of allocated device memory.
     Checks what main_path checks; with ``ref`` (the energies of another
     operator's run of the same data) also at most one outer iteration more
     or less and the energies within ``energy_bound(ref[0], const)``, or
-    with ``hold=False`` only prints how far they lie. Returns the run as
-    main_path does, with ``peak_bytes``."""
+    with ``hold=False`` only prints how far they lie. With ``plain`` the
+    stencil CG runs its plain version (``plain_stencil_cg``) and no kernel
+    may run. Returns the run as main_path does, with ``peak_bytes``."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.config import RuntimeConfig
@@ -1334,12 +1668,15 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True):
     h, w = data.mask.shape
     what = (f"cg_operator={cfg.cg_operator}"
             + (" jacobi" if cfg.jacobi_preconditioner else "")
-            + f" {h}x{w} n={data.I.shape[0]} sf={data.sf}")
+            + f" {h}x{w} n={data.I.shape[0]} sf={data.sf}"
+            + (" (plain version)" if plain else ""))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    final, metrics = solve(data, cfg, RuntimeConfig(fused_outer_loop=True),
-                           device=torch.device("cuda"), verbose=False)
+    with plain_stencil_cg() if plain else contextlib.nullcontext():
+        final, metrics = solve(data, cfg,
+                               RuntimeConfig(fused_outer_loop=True),
+                               device=torch.device("cuda"), verbose=False)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     iters = [r for r in metrics if "iteration" in r]
@@ -1351,7 +1688,8 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True):
                              f"{iters}")
     if not stop_rule_held(energies, cfg.tolerance, cfg.max_iterations):
         raise AssertionError(f"{what}: stopping rule violated: {energies}")
-    if launches != expected_counts(n_it, cli_extra_of(cfg), cfg.cg_operator):
+    if launches != expected_counts(0 if plain else n_it, cli_extra_of(cfg),
+                                   cfg.cg_operator):
         raise AssertionError(f"{what}: kernel runs {launches} for {n_it} "
                              "outer iterations")
     # Only a Jacobi form's stop test can come under tol^2 = 1e-18 in f32.
@@ -1592,6 +1930,21 @@ def api_lanes(label, datas, cfg):
     return n_l
 
 
+def grid_key(grid) -> str:
+    h, w, sf = grid
+    return f"{h}x{w} sf {sf}"
+
+
+def grid_fields(e) -> dict:
+    """The figures of one grid's entry that the ``kernels`` line keeps
+    under ``grids``."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
+            "cg_iterations", "update_rel_rms", "residual_rel_gap",
+            "gamma_rel_gap", "energy_gap_of_bound", "layout",
+            "stream_planes", "max_abs_err")
+    return {k: e[k] for k in keys if k in e}
+
+
 def direct_entries(per_form, launches):
     """The ``kernels`` line's entries of the direct CG, one per form: the
     960 x 1280 sf = 2 figures, those of the other grids under ``grids``,
@@ -1642,14 +1995,31 @@ def main() -> int:
 
     dev = torch.device("cuda")
     grids = [(960, 1280, 2), (240, 320, 1), (480, 640, 4)]
+    # h and w multiples of neither block's tile (4 x 256, 16 x 32): partial
+    # tiles on both edges.
+    odd = (242, 322, 2)
     shared = {g: stacked_lanes(*g, range(4), dev)
-              for g in grids + [(960, 1280, 4)]}
-    entry = kernel_vs_plain(label, grids)[960, 1280, 2]
+              for g in grids + [(960, 1280, 4), odd]}
+    stencil_grids = kernel_vs_plain(label, grids + [odd])
+    entry = stencil_grids.pop((960, 1280, 2))
     stencil_lanes(label, entry, *shared[960, 1280, 2])
-    cgs_entry = cg_vs_plain(label, {g: shared[g] for g in grids},
-                            "cgs")[960, 1280, 2]
+    cgs_grids = cg_vs_plain(label, {g: shared[g] for g in grids + [odd]},
+                            "cgs")
+    cgs_entry = cgs_grids.pop((960, 1280, 2))
     jac = cg_vs_plain(label, shared, "jacobi")
     scaled_entry, pcg_entry = jac[960, 1280, 2], jac[960, 1280, 4]
+    layouts_bit_equal(label, shared[960, 1280, 2][0], {
+        "stencil_cg": entry, "stencil_cg jacobi scaled": scaled_entry,
+        "cgs_cg": cgs_entry})
+    entry["grids"] = {grid_key(g): grid_fields(e)
+                      for g, e in stencil_grids.items()}
+    cgs_entry["grids"] = {grid_key(g): grid_fields(e)
+                          for g, e in cgs_grids.items()}
+    for form_entry, want_sf4 in ((scaled_entry, False), (pcg_entry, True)):
+        form_entry["grids"] = {
+            grid_key(g): grid_fields(e) for g, e in jac.items()
+            if g not in ((960, 1280, 2), (960, 1280, 4))
+            and (g[2] == 4) == want_sf4}
     # 3f on phase 3's grids.
     phase3 = {g: shared[g] for g in grids}
     direct = {form: cg_vs_plain(label, phase3, form) for form in DIRECT_FORMS}
@@ -1663,16 +2033,22 @@ def main() -> int:
     big_entry = kernel_vs_plain(label, [big])[big]
     big_entry["name"] = "stencil_cg 1088x1920"
     big_jac = cg_vs_plain(label, big_lanes, "jacobi")[big]
-    del big_lanes
     big_entry["jacobi"] = {k: big_jac[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "cg_iterations",
-        "energy_abs_gap", "energy_gap_of_bound")}
-    # 3f at bench.py's 4K grid.
+        "energy_abs_gap", "energy_gap_of_bound", "layout", "stream_planes",
+        "stream_bound_ms")}
+    cgs_entry["grids"][grid_key(big)] = time_large(
+        label, big, big_lanes[big][0])["cgs_cg"]
+    del big_lanes
+    # 3f at bench.py's 4K grid, and the persistent kernels timed there.
     k4 = (2176, 3840, 2)
     k4_lanes = {k4: stacked_lanes(*k4, range(4), dev)}
     for form in DIRECT_FORMS:
         direct[form].update(cg_vs_plain(label, k4_lanes, form))
     direct_vs_stencil(label, k4_lanes)
+    for name, e in time_large(label, k4, k4_lanes[k4][0]).items():
+        (entry if name == "stencil_cg" else cgs_entry)["grids"][
+            grid_key(k4)] = e
     del k4_lanes
     direct_launches = {form: {} for form in DIRECT_FORMS}
 
@@ -1832,14 +2208,24 @@ def main() -> int:
 
     k4_direct = summary(runs4k["direct"], "direct_cg")
     k4_stencil = summary(runs4k["stencil"], "stencil_cg")
+    # Where the stencil CG's plain version stops the same solve: the
+    # kernel's f32 energy steps round otherwise (printed, not held).
+    plain4k = api_solve(label, data4k, true4k, SolverConfig(),
+                        runs4k["stencil"][0]["energies"], const4k,
+                        hold=False, plain=True)
+    k4_stencil["plain"] = {
+        "outer_iterations": plain4k["iterations"],
+        "energies": plain4k["energies"],
+        "kernel_energies": runs4k["stencil"][0]["energies"]}
     print(f"[{label}] 4K 2176x3840 n=8 sf=2, each solve twice with equal "
           "energies: " + "; ".join(
               f"{op} {s['outer_iterations']} outer iterations, "
               + " / ".join(f"{t:.3f}" for t in s["ms_per_outer_iteration"])
               + f" ms/outer-iter, peak allocated "
               f"{s['peak_allocated_bytes'] / 2**30:.3f} GiB"
-              for op, s in (("direct", k4_direct), ("stencil", k4_stencil))),
-          flush=True)
+              for op, s in (("direct", k4_direct), ("stencil", k4_stencil)))
+          + f"; the stencil CG's plain version {plain4k['iterations']} outer "
+          "iterations", flush=True)
     direct_launches["direct"]["4k"] = dict(k4_direct, stencil=k4_stencil)
 
     print(json.dumps({"kernels": [entry, cgs_entry, scaled_entry, pcg_entry,

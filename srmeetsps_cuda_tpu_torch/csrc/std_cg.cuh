@@ -1,7 +1,9 @@
 // The standard-CG pieces shared by stencil_cg.cu, direct_cg.cu and
-// shard_cg.cu: the lane's device scalars and their updates, the one-block
-// reduces that apply them, and sweep B (x += alpha p, r -= alpha w). Only
-// the prologue and sweep A (how M is applied) differ between the kernels.
+// shard_cg.cu: the lane's device scalars and their updates (all three),
+// the one-block reduces that apply them and sweep B (x += alpha p, r -=
+// alpha w) (direct_cg.cu and shard_cg.cu; the persistent stencil_cg.cu
+// sums its partials in every CTA and applies scal_* there). Only the
+// prologue and sweep A (how M is applied) differ between the kernels.
 //
 // Each lane owns N_SCAL floats of scalars and PART_ROWS rows of per-block
 // partial sums. r1 drives alpha and beta (rz under Jacobi PCG); rr is <r, r>

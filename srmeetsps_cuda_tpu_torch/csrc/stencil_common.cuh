@@ -1,12 +1,13 @@
 // Device helpers shared by the depth-CG kernels (stencil_cg.cu, cgs_cg.cu,
-// direct_cg.cu).
+// direct_cg.cu, shard_cg.cu).
 //
 // Layout of every plane: unpadded (h, w) row-major f32; a problem stack
 // holds B lanes of such planes back to back, and a kernel's blockIdx.z is
-// its lane. Neighbour reads outside the image are guarded and read 0. The
-// row-shard kernels (shard_cg.cu) read planes with HALO = 1 neighbour row
-// above and below their h rows: pointers there address row 0 of an
-// (h + 2, w) plane, and rows -1 and h are readable.
+// its lane (the persistent kernels take a tile's lane from the tile plan,
+// persistent.cuh). Neighbour reads outside the image are guarded and read
+// 0. The row-shard kernels (shard_cg.cu) read planes with HALO = 1
+// neighbour row above and below their h rows: pointers there address row 0
+// of an (h + 2, w) plane, and rows -1 and h are readable.
 
 #pragma once
 

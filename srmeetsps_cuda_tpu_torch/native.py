@@ -21,8 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept in
+# the build's log (build_log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -62,11 +64,19 @@ def build(name: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
                                f"{name}.cu:\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built ``csrc/<name>.cu`` (the ptxas
+    report of each kernel), or "" for a library built elsewhere."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all(names) -> list[Path]:

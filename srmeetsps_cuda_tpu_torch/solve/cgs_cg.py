@@ -9,10 +9,12 @@ versions of one function live here:
 * :func:`cgs_cg_plain` — plain PyTorch on ``(h, w)`` planes or ``(B, h,
   w)`` lanes. The CPU path and the tests use it; on a CUDA device it is the
   reference the kernel is held against.
-* :func:`cgs_cg` — the wrapper of the hand-written CUDA kernels in
-  ``csrc/cgs_cg.cu``. A CPU tensor takes the plain version; a CUDA tensor
-  launches the kernels or raises. ``cgs_cg.launches`` counts the kernel
-  runs.
+* :func:`cgs_cg` — the wrapper of the hand-written persistent CUDA kernel
+  in ``csrc/cgs_cg.cu``: all lanes and all CG iterations in one
+  cooperative launch over the tiles of ``stencil_cg.tile_plan``. A CPU
+  tensor takes the plain version; a CUDA tensor launches the kernel or
+  raises (a refused cooperative launch too). ``cgs_cg.launches`` counts
+  the kernel runs and ``cgs_cg.last_launch`` describes the last one.
 
 The recurrence (pallas_cg_cgs.py:1-33) reorders standard CG's rounding:
 
@@ -25,8 +27,10 @@ from ``r0 = rhs - M x0``, ``w0 = M r0``, with the stop rule and the cap of
 the standard kernel (``gamma <= tol^2`` or ``max_iter + 1`` iterations).
 ``M`` is applied through the 9 stencil planes of ``stencil_cg``. No energy
 is tracked, as in the TPU kernel: the caller evaluates it at the result.
-The kernel is bound by memory bandwidth: 19 f32 planes per iteration and
-lane (93 MB at 960 x 1280) in one sweep, against about 29 flops per pixel.
+Per iteration and lane the kernel streams 15 f32 planes in its on-chip
+layout and 19 in its device-memory layout (74 and 93 MB at 960 x 1280),
+against about 29 flops per pixel; on the H100 it is bound by instruction
+issue rather than by those bytes (PERF.md).
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ import ctypes
 import torch
 
 from .cg import tol_squared
-from .stencil_cg import (N_STENCIL, build_c_planes, depth_rhs_fields,
-                         lane_dot, one_lane, pack_lanes, per_pixel,
-                         stencil_matvec)
+from .stencil_cg import (INFO_KEYS, LAYOUTS, N_STENCIL, TILE_PART_ROWS,
+                         build_c_planes, depth_rhs_fields, lane_dot,
+                         launch_error, launch_info, one_lane, pack_lanes,
+                         per_pixel, stencil_matvec, tile_plan)
 
 # Device scalar slots written by the kernels (csrc/cgs_cg.cu).
 S_GAMMA, S_ITERS = 0, 7
@@ -102,46 +107,52 @@ def _library():
 
     lib = native.load("cgs_cg")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.srps_cgs_cg.argtypes = [vp] * 9 + [ci, ci, ci, ci, cf, cf, ci, ci, ci,
-                                           vp]
+    lib.srps_cgs_cg.argtypes = [vp] * 9 + [
+        ci, ci, ci, ci, cf, cf, ci, ci, ci, ci, ctypes.POINTER(ci), vp]
     lib.srps_cgs_cg.restype = ci
     return lib
 
 
 def cgs_cg(x0, op, gm, ktw, z0t, *, sf: int, lam: float, tol: float = 1e-9,
-           max_iter: int = 100, block=(256, 4)):
+           max_iter: int = 100, block=(256, 4), layout=None):
     """The Chronopoulos-Gear depth CG: the CUDA kernels for a CUDA ``x0``,
     the plain version for a CPU one. ``x0`` is (h, w) for one problem or
     (B, h, w) for B lanes in one launch, every other input with the same
-    leading axes. ``block`` is the (x, y) thread-block shape. Returns ``(x,
-    iters, r1)`` like ``cg_pallas_cgs[_batched]``; each lane's result is
-    bit for bit that of its own B = 1 launch."""
+    leading axes. ``block`` is the (x, y) thread-block shape; ``layout``
+    forces the kernel's, as in ``stencil_cg``. Returns ``(x, iters, r1)``
+    like ``cg_pallas_cgs[_batched]``; each lane's result is bit for bit
+    that of its own B = 1 launch."""
     if x0.device.type == "cpu":
         return cgs_cg_plain(x0, op, gm, ktw, z0t, sf=sf, lam=lam, tol=tol,
                             max_iter=max_iter)
     if x0.dim() == 2:
         out = cgs_cg(*one_lane(x0, op, gm, ktw, z0t), sf=sf, lam=lam,
-                     tol=tol, max_iter=max_iter, block=block)
+                     tol=tol, max_iter=max_iter, block=block, layout=layout)
         return tuple(t[0] for t in out)
-    F, R0, (bx, by), nb = pack_lanes("cgs_cg", x0, op, gm, ktw, z0t, sf=sf,
-                                     max_iter=max_iter, block=block)
+    F, R0, (bx, by), _ = pack_lanes("cgs_cg", x0, op, gm, ktw, z0t, sf=sf,
+                                    max_iter=max_iter, block=block)
     B, h, w = x0.shape
     dev = x0.device
+    plan = tile_plan(h, w, (bx, by))
     x, p = torch.empty_like(x0), torch.empty_like(x0)
     rws = torch.empty((B, RWS_ROWS, h, w), dtype=torch.float32, device=dev)
     C = torch.empty((B, N_STENCIL, h, w), dtype=torch.float32, device=dev)
-    part = torch.empty(B * 2 * nb, dtype=torch.float32, device=dev)
+    part = torch.empty(TILE_PART_ROWS * B * plan.tiles, dtype=torch.float32,
+                       device=dev)
     scal = torch.empty((B, N_SCAL), dtype=torch.float32, device=dev)
+    info = (ctypes.c_int * len(INFO_KEYS))()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().srps_cgs_cg(
         F.data_ptr(), R0.data_ptr(), x0.data_ptr(), x.data_ptr(),
         p.data_ptr(), rws.data_ptr(), C.data_ptr(), part.data_ptr(),
         scal.data_ptr(), B, h, w, sf, float(lam), tol_squared(tol),
-        int(max_iter), bx, by, stream)
+        int(max_iter), bx, by, LAYOUTS[layout], info, stream)
     if err != 0:
-        raise RuntimeError(f"CGS kernel launch failed: CUDA error {err}")
+        raise launch_error("CGS", err)
+    cgs_cg.last_launch = launch_info(info, plan, 1)
     cgs_cg.launches += 1
     return x, scal[:, S_ITERS].to(torch.int32), scal[:, S_GAMMA]
 
 
 cgs_cg.launches = 0
+cgs_cg.last_launch = None

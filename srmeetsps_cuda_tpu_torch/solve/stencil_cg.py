@@ -12,12 +12,16 @@ of one function live here:
 * :func:`stencil_cg_plain` — plain PyTorch, on ``(h, w)`` planes or on
   ``(B, h, w)`` lanes. The CPU path and the tests use it; on a CUDA device
   it serves only as the reference the kernel is held against.
-* :func:`stencil_cg` — the wrapper of the hand-written CUDA kernels in
-  ``csrc/stencil_cg.cu``: one problem (h, w) as the B = 1 case of a lane
-  batch (B, h, w), all lanes in one launch. A CPU tensor takes the plain
-  version; a CUDA tensor launches the kernels or raises.
-  ``stencil_cg.launches`` counts the kernel runs, and
-  ``stencil_cg.jacobi_launches`` those of them in a Jacobi form.
+* :func:`stencil_cg` — the wrapper of the hand-written persistent CUDA
+  kernel in ``csrc/stencil_cg.cu``: one problem (h, w) as the B = 1 case
+  of a lane batch (B, h, w), all lanes and all CG iterations in one
+  cooperative launch over the tiles of :func:`tile_plan`, whose CTA count
+  and layout the C entry chooses from the card's occupancy. A CPU tensor
+  takes the plain version; a CUDA tensor launches the kernel or raises (a
+  refused cooperative launch too). ``stencil_cg.launches`` counts the
+  kernel runs, ``stencil_cg.jacobi_launches`` those of them in a Jacobi
+  form, and ``stencil_cg.last_launch`` describes the last one (layout,
+  CTAs, registers, device launches made).
 
 Both compute, per lane, from the warm start ``x0``:
 
@@ -50,14 +54,16 @@ grids the port (scaled) and the JAX package (PCG) run two algebraically
 equal recurrences whose iterates agree only within the unconverged-CG
 drift bounds.
 
-The kernel is bound by memory bandwidth: about 19 f32 planes move per
-iteration and lane (93 MB at 960 x 1280; 21 in the PCG form) against about
-27 flops per pixel.
+Per iteration and lane the kernel streams 15 f32 planes in its on-chip
+layout and 19 in its device-memory layout (74 and 93 MB at 960 x 1280;
+PCG +2), against about 27 flops per pixel; on the H100 it is bound by
+instruction issue rather than by those bytes (PERF.md).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -71,11 +77,97 @@ N_STENCIL = 9
 # beta, rr the reported residual.
 S_R1, S_E, S_ITERS, S_RR = 1, 5, 7, 9
 N_SCAL = 10
-# Rows of per-block partial sums per lane.
+# Rows of per-block partial sums per lane (direct_cg.cu, shard_cg.cu).
 PART_ROWS = 3
+# Rows of per-tile partial sums of the persistent kernels (stencil_cg.cu,
+# cgs_cg.cu), each of B x tiles floats.
+TILE_PART_ROWS = 4
 # The kernels' jacobi argument.
 JACOBI_MODES = {None: 0, "scaled": 1, "pcg": 2}
 MAX_BLOCK_THREADS = 1024
+# The persistent kernels' layout argument: chosen by the C entry (the
+# default), or forced (where on chip does not fit, the launch is refused).
+LAYOUTS = {None: -1, "device": 0, "on-chip": 1}
+# Slots of the info array the C entries fill (persist::I_*).
+INFO_KEYS = ("ctas", "resident_ctas_per_sm", "sms", "registers",
+             "local_bytes", "shared_bytes", "device_launches", "onchip",
+             "tiles")
+COOPERATIVE_LAUNCH_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The tiles of a persistent kernel's launch (``csrc/persistent.cuh``)
+    of lanes of (h, w): th x tw tiles (the thread block rounded up to
+    multiples of 4), ``tiles_x`` x ``tiles_y`` of them per lane from (0,
+    0). Tile t of lane l is the launch's tile g = l T + t, owned by CTA g
+    mod G in its slot g // G for the G CTAs the C entry launches (it
+    chooses G and the layout from the card's occupancy)."""
+
+    h: int
+    w: int
+    th: int
+    tw: int
+    tiles_x: int
+    tiles_y: int
+
+    @property
+    def tiles(self) -> int:
+        """Tiles per lane."""
+        return self.tiles_x * self.tiles_y
+
+    def tile_rects(self):
+        """``(t, i0, j0, rows, cols)`` of each tile of a lane in order, cut
+        at the image's edge."""
+        for t in range(self.tiles):
+            i0 = (t // self.tiles_x) * self.th
+            j0 = (t % self.tiles_x) * self.tw
+            yield (t, i0, j0, min(self.th, self.h - i0),
+                   min(self.tw, self.w - j0))
+
+    def owner(self, lane: int, t: int, ctas: int) -> tuple:
+        """``(CTA, slot)`` of tile t of ``lane`` in a launch of ``ctas``
+        CTAs (``persist::tile_of``)."""
+        g = lane * self.tiles + t
+        return g % ctas, g // ctas
+
+
+def _round4(n: int) -> int:
+    return 4 * -(-n // 4)
+
+
+def tile_plan(h: int, w: int, block) -> TilePlan:
+    """The tiles of (h, w) under thread block ``block`` = (bx, by): the
+    block rounded up to multiples of 4 (``persist::make_geo``). Raises on a
+    block outside 1..1024 threads."""
+    bx, by = (int(b) for b in block)
+    if bx <= 0 or by <= 0 or bx * by > MAX_BLOCK_THREADS:
+        raise ValueError(f"thread block {bx}x{by} must hold 1..1024 threads")
+    th, tw = _round4(by), _round4(bx)
+    return TilePlan(h, w, th, tw, -(-w // tw), -(-h // th))
+
+
+def launch_info(info, plan: TilePlan, barriers: int) -> dict:
+    """What a persistent kernel's C entry reported of its launch (G, the
+    layout, shared bytes, registers), with its ``barriers`` per CG
+    iteration; raises where its tiles are not the plan's."""
+    out = dict(zip(INFO_KEYS, (int(v) for v in info)))
+    if out["tiles"] != plan.tiles:
+        raise RuntimeError(f"kernel launch {out} does not match its plan "
+                           f"{plan}")
+    out.update(layout="on-chip" if out["onchip"] else "device",
+               onchip=bool(out["onchip"]), tile=(plan.th, plan.tw),
+               barriers_per_iteration=barriers)
+    return out
+
+
+def launch_error(kernel: str, err: int) -> RuntimeError:
+    why = (" (cooperative launch refused: its CTAs cannot all be resident)"
+           if err == COOPERATIVE_LAUNCH_TOO_LARGE else "")
+    return RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                        f"{err}{why}")
+
+
 F_ROWS = ("P11", "P12", "P13", "P22", "P23", "P33", "fwd_x", "bwd_x",
           "fwd_y", "bwd_y", "ktw")
 
@@ -306,8 +398,8 @@ def _library():
 
     lib = native.load("stencil_cg")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.srps_stencil_cg.argtypes = [vp] * 13 + [ci, ci, ci, ci, cf, cf, ci,
-                                                 ci, ci, ci, vp]
+    lib.srps_stencil_cg.argtypes = [vp] * 13 + [
+        ci, ci, ci, ci, cf, cf, ci, ci, ci, ci, ci, ctypes.POINTER(ci), vp]
     lib.srps_stencil_cg.restype = ci
     return lib
 
@@ -370,17 +462,19 @@ def one_lane(x0, op, gm, *planes):
 
 def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
                tol: float = 1e-9, max_iter: int = 100, block=(256, 4),
-               planes: bool = False, invd=None):
+               planes: bool = False, invd=None, layout=None):
     """The depth CG: the CUDA kernels for a CUDA ``x0``, the plain version
     for a CPU one. ``x0`` is (h, w) for one problem or (B, h, w) for B
     lanes in one launch; every other input carries the same leading axes
     (``z0u`` is (..., 2, h, w)). ``block`` is the (x, y) thread-block
     shape. ``invd`` (like ``x0``) turns on Jacobi preconditioning in the
-    form :func:`jacobi_form` picks from ``sf``. Returns
-    ``(x, iters, r1, e_part)`` like ``cg_pallas_vmem_fromop[_batched](...,
-    with_energy=True)``, the scalars one per lane, plus the C planes
-    (..., 9, h, w) with ``planes=True``. Each lane's result is bit for bit
-    that of its own B = 1 launch."""
+    form :func:`jacobi_form` picks from ``sf``. ``layout`` ("on-chip" or
+    "device") forces the kernel's layout, which the C entry otherwise
+    chooses; the bits are the same in both. Returns ``(x, iters, r1,
+    e_part)`` like ``cg_pallas_vmem_fromop[_batched](...,
+    with_energy=True)``, the scalars one per lane, plus the C planes (...,
+    9, h, w) with ``planes=True``. Each lane's result is bit for bit that
+    of its own B = 1 launch."""
     if x0.device.type == "cpu":
         return stencil_cg_plain(x0, op, gm, ktw, z0t, z0u, sf=sf, lam=lam,
                                 tol=tol, max_iter=max_iter, planes=planes,
@@ -388,20 +482,23 @@ def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
     if x0.dim() == 2:
         out = stencil_cg(*one_lane(x0, op, gm, ktw, z0t, z0u), sf=sf,
                          lam=lam, tol=tol, max_iter=max_iter, block=block,
-                         planes=planes,
+                         planes=planes, layout=layout,
                          invd=None if invd is None else invd.unsqueeze(0))
         return tuple(t[0] for t in out)
     form = None if invd is None else jacobi_form(sf)
-    F, R0, (bx, by), nb = pack_lanes("stencil_cg", x0, op, gm, ktw, z0t,
-                                     sf=sf, max_iter=max_iter, block=block,
-                                     invd=invd)
+    F, R0, (bx, by), _ = pack_lanes("stencil_cg", x0, op, gm, ktw, z0t,
+                                    sf=sf, max_iter=max_iter, block=block,
+                                    invd=invd)
     B, h, w = x0.shape
     dev = x0.device
     check_tensor("z0u", z0u, (B, 2, h, w), dev)
+    plan = tile_plan(h, w, (bx, by))
     x, r, p0, p1, wv = (torch.empty_like(x0) for _ in range(5))
     C = torch.empty((B, N_STENCIL, h, w), dtype=torch.float32, device=dev)
-    part = torch.empty(B * PART_ROWS * nb, dtype=torch.float32, device=dev)
+    part = torch.empty(TILE_PART_ROWS * B * plan.tiles, dtype=torch.float32,
+                       device=dev)
     scal = torch.empty((B, N_SCAL), dtype=torch.float32, device=dev)
+    info = (ctypes.c_int * len(INFO_KEYS))()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().srps_stencil_cg(
         F.data_ptr(), R0.data_ptr(), z0u.data_ptr(), x0.data_ptr(),
@@ -409,9 +506,10 @@ def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
         r.data_ptr(), p0.data_ptr(), p1.data_ptr(), wv.data_ptr(),
         C.data_ptr(), part.data_ptr(), scal.data_ptr(), B, h, w, sf,
         float(lam), tol_squared(tol), int(max_iter), bx, by,
-        JACOBI_MODES[form], stream)
+        JACOBI_MODES[form], LAYOUTS[layout], info, stream)
     if err != 0:
-        raise RuntimeError(f"stencil CG kernel launch failed: CUDA error {err}")
+        raise launch_error("stencil CG", err)
+    stencil_cg.last_launch = launch_info(info, plan, 2)
     stencil_cg.launches += 1
     if form is not None:
         stencil_cg.jacobi_launches += 1
@@ -421,3 +519,4 @@ def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
 
 stencil_cg.launches = 0
 stencil_cg.jacobi_launches = 0
+stencil_cg.last_launch = None

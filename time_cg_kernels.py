@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Milliseconds per CG iteration of the stencil and CGS kernels on the card.
+
+    python3 time_cg_kernels.py
+
+Run from the root of a checkout (the script imports the checkout's
+``chip_smoke`` and ``srmeetsps_cuda_tpu_torch``), so that one script can time
+two checkouts in turns on one card: ``cd other && python3
+/path/to/time_cg_kernels.py`` (a checkout whose kernels take no ``layout``
+has no device-layout entries). Each entry is CUDA-event time over 5 solves
+at cap 100 (101 CG iterations; 3 at 1088 x 1920 and 4K), on the seeded
+depth operators of ``chip_smoke.stacked_lanes``, divided by 101. Prints
+one JSON line with the card's name and power limit.
+"""
+
+import json
+import os
+import sys
+
+sys.path.insert(0, os.getcwd())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_cg_kernels: no CUDA device available", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from srmeetsps_cuda_tpu_torch import native
+    from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+
+    native.build_all(["stencil_cg", "cgs_cg"])
+    dev = torch.device("cuda")
+    lanes2, stacked2 = cs.stacked_lanes(960, 1280, 2, range(4), dev)
+    lanes4, _ = cs.stacked_lanes(960, 1280, 4, range(1), dev)
+    ln, l4 = lanes2[0], lanes4[0]
+
+    def std(args, **kw):
+        return lambda: sc.stencil_cg(*args, lam=1.0, max_iter=100, **kw)
+
+    runs = {
+        "stencil_cg 960x1280 sf 2": std(ln[:6], sf=2),
+        "stencil_cg 960x1280 sf 2 block 32x16": std(ln[:6], sf=2,
+                                                    block=(32, 16)),
+        "stencil_cg scaled 960x1280 sf 2": std(ln[:6], sf=2, invd=ln[6]),
+        "stencil_cg pcg 960x1280 sf 4": std(l4[:6], sf=4, invd=l4[6]),
+        "stencil_cg B=4 960x1280 sf 2": std(stacked2[:6], sf=2),
+        "cgs_cg 960x1280 sf 2": lambda: cg.cgs_cg(*ln[:5], sf=2, lam=1.0,
+                                                  max_iter=100),
+    }
+    if "layout" in sc.stencil_cg.__code__.co_varnames:
+        # The device layout forced where the on-chip one is chosen.
+        runs.update({
+            "stencil_cg 960x1280 sf 2 device layout": std(
+                ln[:6], sf=2, layout="device"),
+            "cgs_cg 960x1280 sf 2 device layout": lambda: cg.cgs_cg(
+                *ln[:5], sf=2, lam=1.0, max_iter=100, layout="device")})
+    out = {name: cs.cuda_ms(fn, 5) / 101 for name, fn in runs.items()}
+    del lanes2, stacked2, lanes4, ln, l4
+    for h, w in ((1088, 1920), (2176, 3840)):
+        big = cs.stacked_lanes(h, w, 2, range(1), dev)[0][0]
+        out[f"stencil_cg {h}x{w} sf 2"] = cs.cuda_ms(
+            std(big[:6], sf=2), 3) / 101
+        out[f"cgs_cg {h}x{w} sf 2"] = cs.cuda_ms(
+            lambda: cg.cgs_cg(*big[:5], sf=2, lam=1.0, max_iter=100),
+            3) / 101
+    print(json.dumps({"ms_per_cg_iteration": out, "card": cs.gpu_label()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
