@@ -45,13 +45,16 @@ falls back to the CPU or to a plain version):
    checks and Jacobi with phase 3d's; the CGS kernel there, and both
    kernels at 2176 x 3840 (after 3f's 4K part), timed with the update and
    residual held at UPD_BOUND / RES_BOUND (``time_large``);
-3f. the direct mask-gated matvec CG (``direct_cg``) the same way on the
-   grids of phase 3 and at 2176 x 3840, sf = 2 (bench.py's 4K grid), in its
-   three forms: r0 in the kernel with the tracked energy, the same with its
-   in-sweep Jacobi PCG, and given its residual, at phase 3c's block
-   shapes (30 x 3 splits sf = 4 tiles); then the direct and the
-   stencil operator against each other on the card (matvecs to f32
-   roundoff, the two kernels' CGs within phase 3c's bounds);
+3f. the direct mask-gated matvec CG (``direct_cg``, persistent like the
+   stencil and CGS kernels) the same way on the grids of phase 3 and at
+   2176 x 3840, sf = 2 (bench.py's 4K grid), in its three forms: r0 in the
+   kernel with the tracked energy, the same with its in-sweep Jacobi PCG,
+   and given its residual, at phase 3c's block shapes (30 x 3 splits sf =
+   4 tiles): one device launch per CG solve, a repeat bit-equal at each
+   block, the device layout (its only one: ``EXPECT_LAYOUT``), the
+   registers and spills of each instance; then the direct and the stencil
+   operator against each other on the card (matvecs to f32 roundoff, the
+   two kernels' CGs within phase 3c's bounds);
 4. the main path through the CLI entry point on a 960 x 1280, n = 20, c = 3,
    sf = 2 dataset written as a MAT v5 file: finite energies, the reference's
    stopping rule, a finite depth, every depth CG through the kernel; and the
@@ -89,8 +92,9 @@ falls back to the CPU or to a plain version):
    ``runtime.solver.solve`` with ``"direct"`` and with ``"stencil"``, in
    turns: a finite depth, the stopping rule, outer iterations, ms per
    outer iteration and the peak of allocated device memory; then the
-   ``"stencil"`` solve once more with the stencil CG's plain version on the
-   card, its outer iterations and energies printed beside the kernel's;
+   ``"stencil"`` and the ``"direct"`` solve once more each with its CG's
+   plain version on the card, their outer iterations and energies printed
+   beside the kernels';
 3g. the row-shard kernels (``csrc/shard_cg.cu``) on 4 shards of the card
    against their plain versions on the same shards, on phase 3's grids and
    at 1088 x 1920 sf = 2, in the standard, CGS and Jacobi forms, from the
@@ -183,13 +187,12 @@ STENCIL_PLANES, CGS_PLANES, JACOBI_PLANES = 19, 17, 20
 # (~45) and a dot to the prologue; a given residual only the dot. Jacobi adds
 # rz and z = invd r (3 per iteration, 2 in the prologue). Planes read once
 # and written once: F (11), R0 (4) and Z0U (2) or b (1), x0 in, x out, and
-# invd under Jacobi; the design streams F (11) and 10 state planes per
-# iteration, invd twice more under Jacobi.
+# invd under Jacobi (what the design streams: persistent_planes).
 DIRECT_FORMS = {
-    # form: (flops, planes, stream planes)
-    "direct": ({"prologue": 100, "iteration": 50}, 19, 21),
-    "direct jacobi": ({"prologue": 102, "iteration": 53}, 20, 23),
-    "direct host_r0": ({"prologue": 2, "iteration": 50}, 14, 21),
+    # form: (flops, planes)
+    "direct": ({"prologue": 100, "iteration": 50}, 19),
+    "direct jacobi": ({"prologue": 102, "iteration": 53}, 20),
+    "direct host_r0": ({"prologue": 2, "iteration": 50}, 14),
 }
 
 # The TPU kernels each form of the direct CG stands for (file:line of the
@@ -243,13 +246,17 @@ def bound(hw: int, lanes: int, iters: int, planes: int, flops: dict,
 
 
 # f32 planes one CG iteration of the persistent kernels (csrc/stencil_cg.cu,
-# csrc/cgs_cg.cu) streams, by layout: the stencil CG's phase A reads 9 C, r
-# and p_old (PCG invd) and writes p, phase B reads p and r (PCG invd) and
-# writes r; in device memory w is written and read and x read and written
-# too. The CGS reads 9 C and one (r, w, s) set and writes the other; in
-# device memory x and p are read and written too. sf = 4 reads ktw.
+# csrc/cgs_cg.cu, csrc/direct_cg.cu) streams, by layout: the stencil CG's
+# phase A reads 9 C, r and p_old (PCG invd) and writes p, phase B reads p
+# and r (PCG invd) and writes r; in device memory w is written and read and
+# x read and written too. The CGS reads 9 C and one (r, w, s) set and
+# writes the other; in device memory x and p are read and written too. sf =
+# 4 reads ktw. The direct CG (device layout only) reads F's 11 planes (ktw
+# at every sf) where the stencil's reads 9 C, and PCG invd in both phases.
 def persistent_planes(kernel: str, form, onchip: bool, sf: int) -> int:
     planes = 15 if onchip else 19
+    if kernel == "direct_cg":
+        return planes + 2 + (2 if "jacobi" in form else 0)
     if kernel == "stencil_cg" and form == "pcg":
         planes += 2
     return planes + (1 if sf == 4 else 0)
@@ -258,9 +265,9 @@ def persistent_planes(kernel: str, form, onchip: bool, sf: int) -> int:
 def ptxas_report(name: str) -> dict:
     """Registers and spill bytes of each persistent kernel instance of
     ``csrc/<name>.cu`` from nvcc's ``-Xptxas -v`` report: {"cg_kernel<mode,
-    onchip,bx,by>" or "cgs_kernel<onchip,bx,by>": {"registers",
-    "spill_stores", "spill_loads"}} (bx, by: the block compiled in, or 0,
-    0)."""
+    onchip,bx,by>", "cgs_kernel<onchip,bx,by>" or "direct_kernel<jacobi,
+    bx,by>": {"registers", "spill_stores", "spill_loads"}} (bx, by: the
+    block compiled in, or 0, 0)."""
     import re
 
     from srmeetsps_cuda_tpu_torch import native
@@ -270,8 +277,9 @@ def ptxas_report(name: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\S+?)'?(?: for |$)", line)
         if m:
-            k = re.search(r"(cgs_kernel|cg_kernel)I(?:Li(\d)E)?Lb([01])E"
-                          r"Li(\d+)ELi(\d+)EE", m.group(1))
+            k = re.search(r"(cgs_kernel|cg_kernel|direct_kernel)I"
+                          r"(?:Li(\d)E)?Lb([01])ELi(\d+)ELi(\d+)EE",
+                          m.group(1))
             cur = None if k is None else (
                 k.group(1) + "<" + ",".join(
                     g for g in k.groups()[1:] if g is not None) + ">")
@@ -293,6 +301,12 @@ def ptxas_report(name: str) -> dict:
 # whole number of warps, and 30 x 3 (90 threads, no whole number of warps,
 # whose rows and columns split sf = 4 tiles).
 BLOCKS = ((256, 4), (32, 16), (30, 3))
+# The layout the C entry must choose at 960 x 1280, B = 1, at both standard
+# blocks, per cg_vs_plain form: the CGS keeps x and p on chip; the direct
+# CG has the device layout alone (its staged F fields fill the shared
+# memory).
+EXPECT_LAYOUT = {"cgs": "on-chip", "direct": "device",
+                 "direct jacobi": "device", "direct host_r0": "device"}
 
 
 def expect_layout(infos: dict, want: str, where: str) -> None:
@@ -325,9 +339,13 @@ def launch_summary(kernel: str, form, infos: dict, sf: int) -> tuple:
     texts, fields = [], {}
     for (bx, by), info in infos.items():
         shape = f"{bx},{by}" if (bx, by) in ((256, 4), (32, 16)) else "0,0"
-        inst = (f"cgs_kernel<{int(info['onchip'])},{shape}>"
-                if kernel == "cgs_cg"
-                else f"cg_kernel<{mode},{int(info['onchip'])},{shape}>")
+        onchip = int(info["onchip"])
+        if kernel == "cgs_cg":
+            inst = f"cgs_kernel<{onchip},{shape}>"
+        elif kernel == "direct_cg":
+            inst = f"direct_kernel<{int('jacobi' in form)},{shape}>"
+        else:
+            inst = f"cg_kernel<{mode},{onchip},{shape}>"
         px = report.get(inst, {})
         planes = persistent_planes(kernel, form, info["onchip"], sf)
         texts.append(
@@ -811,7 +829,6 @@ def cg_vs_plain(label, grids, form: str):
                         else None, b=b, with_energy=not host, **kw)) + (None,)
 
     blocks = BLOCKS
-    persistent = form in ("cgs", "jacobi")
     entries = {}
     for (h, w, sf), (lanes, stacked) in grids.items():
         jform = sc.jacobi_form(sf) if form == "jacobi" else form
@@ -844,8 +861,7 @@ def cg_vs_plain(label, grids, form: str):
                     torch.cuda.synchronize()
                     if getattr(kernel, counter) != before + 1:
                         raise AssertionError(f"{where}: launch not counted")
-                    if persistent:
-                        infos[block] = one_launch(kernel, where)
+                    infos[block] = one_launch(kernel, where)
                     if form == "jacobi" and not torch.equal(C, pC):
                         raise AssertionError(
                             f"{where}: C' differs from the plain version's "
@@ -882,22 +898,21 @@ def cg_vs_plain(label, grids, form: str):
                             f"(bound {UPD_BOUND[start][cap]}), relative gap "
                             f"of {res} {gap:.3e} (bound "
                             f"{RES_BOUND[start][cap]})")
-        launches = ""
-        if persistent:
-            pname = "cgs_cg" if form == "cgs" else "stencil_cg"
-            repeat_bit_equal(lambda blk: tuple(
-                t for t in call(kernel, lanes[0], sf=sf, lam=1.0,
-                                max_iter=12, block=blk) if t is not None),
-                f"{name} {h}x{w} sf={sf}")
-            launches, fields = launch_summary(
-                pname, None if form == "cgs" else jform, infos, sf)
-            if form == "cgs" and (h, w) == (960, 1280):
-                expect_layout(infos, "on-chip", f"{name} {h}x{w} B=1")
-            launches = ("; one device launch per CG solve, repeat bit-equal "
-                        f"at {len(BLOCKS)} blocks; " + launches)
+        pname = ("cgs_cg" if form == "cgs" else "direct_cg" if direct
+                 else "stencil_cg")
+        b0 = given_residual(lanes[0], lanes[0][0], sf) if host else None
+        repeat_bit_equal(lambda blk: tuple(
+            t for t in call(kernel, lanes[0], b=b0, sf=sf, lam=1.0,
+                            max_iter=12, block=blk) if t is not None),
+            f"{name} {h}x{w} sf={sf}")
+        launches, fields = launch_summary(
+            pname, None if form == "cgs" else jform, infos, sf)
+        if (h, w) == (960, 1280) and form in EXPECT_LAYOUT:
+            expect_layout(infos, EXPECT_LAYOUT[form], f"{name} {h}x{w} B=1")
+        launches = ("; one device launch per CG solve, repeat bit-equal "
+                    f"at {len(BLOCKS)} blocks; " + launches)
         xs, ks, rs, es, _ = call(kernel, stacked, sf=sf, lam=1.0, max_iter=12)
-        if persistent:
-            one_launch(kernel, f"{name} {h}x{w} B={len(lanes)}")
+        one_launch(kernel, f"{name} {h}x{w} B={len(lanes)}")
         for b, ln in enumerate(lanes):
             x1, k1, r1, e1, _ = call(kernel, ln, sf=sf, lam=1.0, max_iter=12)
             if not (torch.equal(xs[b], x1) and int(ks[b]) == int(k1)
@@ -906,7 +921,6 @@ def cg_vs_plain(label, grids, form: str):
                 raise AssertionError(f"{name} lane {b} differs from its solo "
                                      "launch")
         cap = 100
-        b0 = given_residual(lanes[0], lanes[0][0], sf) if host else None
         run_k = lambda: call(kernel, lanes[0], b=b0, sf=sf,  # noqa: E731
                              lam=1.0, max_iter=cap)
         run_p = lambda: call(plain, lanes[0], b=b0, sf=sf,  # noqa: E731
@@ -917,18 +931,14 @@ def cg_vs_plain(label, grids, form: str):
         ms_k = (t_k1 + t_k2) / 2 / (cap + 1)
         ms_p = (t_p1 + t_p2) / 2 / (cap + 1)
         if form == "jacobi":
-            b_ms, b_by, s_ms = bound(h * w, 1, n_it, JACOBI_PLANES,
-                                     JACOBI_FLOPS[jform], sf,
-                                     fields["256x4"]["stream_planes"],
-                                     per=cap + 1)
+            planes, flops = JACOBI_PLANES, JACOBI_FLOPS[jform]
         elif direct:
-            flops, planes, stream = DIRECT_FORMS[form]
-            b_ms, b_by, s_ms = bound(h * w, 1, n_it, planes, flops, sf,
-                                     stream, per=cap + 1)
+            flops, planes = DIRECT_FORMS[form]
         else:
-            b_ms, b_by, s_ms = bound(h * w, 1, n_it, CGS_PLANES, CGS_FLOPS,
-                                     sf, fields["256x4"]["stream_planes"],
-                                     per=cap + 1)
+            planes, flops = CGS_PLANES, CGS_FLOPS
+        b_ms, b_by, s_ms = bound(h * w, 1, n_it, planes, flops, sf,
+                                 fields["256x4"]["stream_planes"],
+                                 per=cap + 1)
         print(f"[{label}] {name} {h}x{w} sf={sf}: "
               + ("C' bit-equal, " if form == "jacobi" else "")
               + f"iterations equal ({n_it} of seed 0 at cap 100); relative "
@@ -961,11 +971,9 @@ def cg_vs_plain(label, grids, form: str):
             f"{res}_rel_gap": gaps["warm", 2][1], "cg_iterations": n_it,
             "unit": f"per launched CG iteration, {h}x{w} sf {sf}, "
                     f"{cap + 1} launched, {n_it} run"}
-        if persistent:
-            entries[h, w, sf].update(
-                design="persistent", layout=fields["256x4"]["layout"],
-                stream_planes=fields["256x4"]["stream_planes"],
-                launch=fields)
+        entries[h, w, sf].update(
+            design="persistent", layout=fields["256x4"]["layout"],
+            stream_planes=fields["256x4"]["stream_planes"], launch=fields)
         if direct:
             entries[h, w, sf]["also_replaces"] = [
                 "srmeetsps_cuda_tpu/solve/" + r
@@ -1634,19 +1642,24 @@ def small_input_vs_cpu(label, jacobi=False):
 
 
 @contextlib.contextmanager
-def plain_stencil_cg():
-    """The main path's stencil CG runs its plain version on the card
-    while this holds (``models.srps.depth_cg`` reads ``stencil_cg`` per
-    call)."""
+def plain_depth_cg(operator: str):
+    """The main path's depth CG of ``operator`` (a ``cg_operator``: the
+    stencil or the direct CG) runs its plain version on the card while
+    this holds (``models.srps.depth_cg`` reads ``stencil_cg`` and
+    ``direct_cg`` per call)."""
     from srmeetsps_cuda_tpu_torch.models import srps
+    from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
-    kernel = srps.stencil_cg
-    srps.stencil_cg = lambda *a, block=None, **k: sc.stencil_cg_plain(*a, **k)
+    name, plain = (("direct_cg", dc.direct_cg_plain)
+                   if operator.startswith("direct")
+                   else ("stencil_cg", sc.stencil_cg_plain))
+    kernel = getattr(srps, name)
+    setattr(srps, name, lambda *a, block=None, **k: plain(*a, **k))
     try:
         yield
     finally:
-        srps.stencil_cg = kernel
+        setattr(srps, name, kernel)
 
 
 def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True,
@@ -1658,8 +1671,8 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True,
     operator's run of the same data) also at most one outer iteration more
     or less and the energies within ``energy_bound(ref[0], const)``, or
     with ``hold=False`` only prints how far they lie. With ``plain`` the
-    stencil CG runs its plain version (``plain_stencil_cg``) and no kernel
-    may run. Returns the run as main_path does, with ``peak_bytes``."""
+    depth CG of ``cfg.cg_operator`` runs its plain version
+    (``plain_depth_cg``) and no kernel may run. Returns the run as main_path does, with ``peak_bytes``."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.config import RuntimeConfig
@@ -1673,7 +1686,8 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with plain_stencil_cg() if plain else contextlib.nullcontext():
+    with (plain_depth_cg(cfg.cg_operator) if plain
+          else contextlib.nullcontext()):
         final, metrics = solve(data, cfg,
                                RuntimeConfig(fused_outer_loop=True),
                                device=torch.device("cuda"), verbose=False)
@@ -1949,14 +1963,11 @@ def direct_entries(per_form, launches):
     """The ``kernels`` line's entries of the direct CG, one per form: the
     960 x 1280 sf = 2 figures, those of the other grids under ``grids``,
     and the launches of the main-path runs ``launches[form]``."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
-            "cg_iterations", "update_rel_rms", "residual_rel_gap",
-            "energy_gap_of_bound")
     out = []
     for form, grids in per_form.items():
         entry = dict(grids[960, 1280, 2])
-        entry["grids"] = {f"{h}x{w} sf {sf}": {k: e[k] for k in keys if k in e}
-                          for (h, w, sf), e in grids.items()}
+        entry["grids"] = {grid_key(g): grid_fields(e)
+                          for g, e in grids.items()}
         entry.update(launches[form])
         out.append(entry)
     return out
@@ -2208,15 +2219,17 @@ def main() -> int:
 
     k4_direct = summary(runs4k["direct"], "direct_cg")
     k4_stencil = summary(runs4k["stencil"], "stencil_cg")
-    # Where the stencil CG's plain version stops the same solve: the
-    # kernel's f32 energy steps round otherwise (printed, not held).
-    plain4k = api_solve(label, data4k, true4k, SolverConfig(),
-                        runs4k["stencil"][0]["energies"], const4k,
-                        hold=False, plain=True)
-    k4_stencil["plain"] = {
-        "outer_iterations": plain4k["iterations"],
-        "energies": plain4k["energies"],
-        "kernel_energies": runs4k["stencil"][0]["energies"]}
+    # Where each CG's plain version stops the same solve: the kernels' f32
+    # energy steps round otherwise (printed, not held).
+    plain4k = {}
+    for op, s in (("stencil", k4_stencil), ("direct", k4_direct)):
+        plain4k[op] = api_solve(label, data4k, true4k,
+                                SolverConfig(cg_operator=op),
+                                runs4k[op][0]["energies"], const4k,
+                                hold=False, plain=True)
+        s["plain"] = {"outer_iterations": plain4k[op]["iterations"],
+                      "energies": plain4k[op]["energies"],
+                      "kernel_energies": runs4k[op][0]["energies"]}
     print(f"[{label}] 4K 2176x3840 n=8 sf=2, each solve twice with equal "
           "energies: " + "; ".join(
               f"{op} {s['outer_iterations']} outer iterations, "
@@ -2224,8 +2237,9 @@ def main() -> int:
               + f" ms/outer-iter, peak allocated "
               f"{s['peak_allocated_bytes'] / 2**30:.3f} GiB"
               for op, s in (("direct", k4_direct), ("stencil", k4_stencil)))
-          + f"; the stencil CG's plain version {plain4k['iterations']} outer "
-          "iterations", flush=True)
+          + "; plain versions: " + ", ".join(
+              f"{op} {r['iterations']} outer iterations"
+              for op, r in plain4k.items()), flush=True)
     direct_launches["direct"]["4k"] = dict(k4_direct, stencil=k4_stencil)
 
     print(json.dumps({"kernels": [entry, cgs_entry, scaled_entry, pcg_entry,

@@ -1,16 +1,15 @@
 // The standard-CG pieces shared by stencil_cg.cu, direct_cg.cu and
-// shard_cg.cu: the lane's device scalars and their updates (all three),
-// the one-block reduces that apply them and sweep B (x += alpha p, r -=
-// alpha w) (direct_cg.cu and shard_cg.cu; the persistent stencil_cg.cu
-// sums its partials in every CTA and applies scal_* there). Only the
-// prologue and sweep A (how M is applied) differ between the kernels.
+// shard_cg.cu: the lane's device scalars and their updates (all three; the
+// persistent stencil_cg.cu and direct_cg.cu sum their per-tile partials in
+// every CTA and apply scal_* there, shard_cg.cu in its one-block sums),
+// and the row shard's sweep B (x += alpha p, r -= alpha w) with its
+// per-block partials (shard_cg.cu).
 //
-// Each lane owns N_SCAL floats of scalars and PART_ROWS rows of per-block
-// partial sums. r1 drives alpha and beta (rz under Jacobi PCG); rr is <r, r>
-// (the stop dot) and, after the loop, the reported residual. The reduces sum
-// the partials in a fixed order in double: no float atomics, so iteration
-// counts and energies repeat exactly, and a lane's result does not depend on
-// the other lanes of its launch.
+// Each lane owns N_SCAL floats of scalars. r1 drives alpha and beta (rz
+// under Jacobi PCG); rr is <r, r> (the stop dot) and, after the loop, the
+// reported residual. The partials are summed in a fixed order in double:
+// no float atomics, so iteration counts and energies repeat exactly, and a
+// lane's result does not depend on the other lanes of its launch.
 
 #pragma once
 
@@ -23,15 +22,15 @@ using namespace srps;
 constexpr int S_R0 = 0, S_R1 = 1, S_PW = 2, S_ALPHA = 3, S_BETA = 4,
               S_E = 5, S_ACT = 6, S_ITERS = 7, S_K = 8, S_RR = 9;
 constexpr int N_SCAL = 10;
-// Rows of per-block partial sums per lane: the prologue writes <r0, r0>,
-// the energy and (Jacobi) rz; sweep A <p, w>; sweep B <r, r> and rz.
+// Rows of per-block partial sums per lane of the row shard's sweeps: sweep
+// B writes <r, r> and (Jacobi) rz.
 constexpr int PART_ROWS = 3;
 
 // The lane's scalar updates from the sums of its partials, each done by one
 // thread: after the prologue (rr, the energy e0 and, in PCG, rz), after
 // sweep A (pw) and after sweep B (rr, rz). In PCG r1 = rz and the stop test
-// reads rr; otherwise both are <r, r>. The reduces below call them on a
-// lane's own sums; shard_cg.cu on the sums of every row shard.
+// reads rr; otherwise both are <r, r>. The persistent kernels call them on
+// a lane's own sums; shard_cg.cu on the sums of every row shard.
 __device__ void scal_init(float* __restrict__ scal, double rr, double e0,
                           double rz, float tol2, int max_iter) {
   const float rrf = (float)rr;
@@ -77,31 +76,6 @@ __device__ void scal_b(float* __restrict__ scal, double rr, double rz,
   if (act) scal[S_ITERS] = scal[S_ITERS] + 1.0f;
 }
 
-// One block per lane (blockIdx.x).
-template <bool JAC>
-__global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_init_kernel(const float* __restrict__ part, int nb,
-                   float* __restrict__ scal, float tol2, int max_iter) {
-  __shared__ double sh[REDUCE_THREADS];
-  part += (size_t)blockIdx.x * PART_ROWS * nb;
-  scal += (size_t)blockIdx.x * N_SCAL;
-  const double rr = reduce_parts(part, nb, sh);
-  const double e0 = reduce_parts(part + nb, nb, sh);
-  const double rz = JAC ? reduce_parts(part + 2 * nb, nb, sh) : rr;
-  if (threadIdx.x == 0) scal_init(scal, rr, e0, rz, tol2, max_iter);
-}
-
-__global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_a_kernel(const float* __restrict__ part, int nb,
-                float* __restrict__ scal) {
-  scal += (size_t)blockIdx.x * N_SCAL;
-  if (scal[S_ACT] == 0.0f) return;
-  __shared__ double sh[REDUCE_THREADS];
-  const double pw =
-      reduce_parts(part + (size_t)blockIdx.x * PART_ROWS * nb, nb, sh);
-  if (threadIdx.x == 0) scal_a(scal, pw);
-}
-
 template <bool JAC>
 __global__ void __launch_bounds__(MAX_THREADS)
 sweep_b_kernel(float* __restrict__ x, float* __restrict__ r,
@@ -139,19 +113,6 @@ sweep_b_kernel(float* __restrict__ x, float* __restrict__ r,
     part[lane_block()] = s;
     if (JAC) part[nb + lane_block()] = sz;
   }
-}
-
-template <bool JAC>
-__global__ void __launch_bounds__(REDUCE_THREADS)
-reduce_b_kernel(const float* __restrict__ part, int nb,
-                float* __restrict__ scal, float tol2, int max_iter) {
-  scal += (size_t)blockIdx.x * N_SCAL;
-  if (scal[S_ACT] == 0.0f) return;
-  __shared__ double sh[REDUCE_THREADS];
-  part += (size_t)blockIdx.x * PART_ROWS * nb;
-  const double rr = reduce_parts(part, nb, sh);
-  const double rz = JAC ? reduce_parts(part + nb, nb, sh) : rr;
-  if (threadIdx.x == 0) scal_b(scal, rr, rz, tol2, max_iter);
 }
 
 }  // namespace

@@ -129,8 +129,8 @@ def cgs_cg(x0, op, gm, ktw, z0t, *, sf: int, lam: float, tol: float = 1e-9,
         out = cgs_cg(*one_lane(x0, op, gm, ktw, z0t), sf=sf, lam=lam,
                      tol=tol, max_iter=max_iter, block=block, layout=layout)
         return tuple(t[0] for t in out)
-    F, R0, (bx, by), _ = pack_lanes("cgs_cg", x0, op, gm, ktw, z0t, sf=sf,
-                                    max_iter=max_iter, block=block)
+    F, R0, (bx, by) = pack_lanes("cgs_cg", x0, op, gm, ktw, z0t, sf=sf,
+                                 max_iter=max_iter, block=block)
     B, h, w = x0.shape
     dev = x0.device
     plan = tile_plan(h, w, (bx, by))

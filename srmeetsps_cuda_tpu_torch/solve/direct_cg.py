@@ -19,11 +19,17 @@ Two versions of one function live here:
 * :func:`direct_cg_plain` — plain PyTorch, on ``(h, w)`` planes or ``(B,
   h, w)`` lanes. The CPU path and the tests use it; on a CUDA device it is
   the reference the kernel is held against.
-* :func:`direct_cg` — the wrapper of the hand-written CUDA kernels in
-  ``csrc/direct_cg.cu``, all lanes in one launch. A CPU tensor takes the
-  plain version; a CUDA tensor launches the kernels or raises.
-  ``direct_cg.launches`` counts the kernel runs, ``.jacobi_launches`` those
-  with ``invd`` and ``.host_r0_launches`` those given their residual.
+* :func:`direct_cg` — the wrapper of the hand-written persistent CUDA
+  kernel in ``csrc/direct_cg.cu``: all lanes and all CG iterations in one
+  cooperative launch over the tiles of :func:`stencil_cg.tile_plan`, whose
+  CTA count the C entry chooses from the card's occupancy; x and w stay in
+  device memory (the kernel has no on-chip layout). A
+  CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+  raises (a refused cooperative launch too). ``direct_cg.launches`` counts
+  the kernel runs, ``.jacobi_launches`` those with ``invd``,
+  ``.host_r0_launches`` those given their residual, and
+  ``direct_cg.last_launch`` describes the last one (layout, CTAs,
+  registers, device launches made).
 
 Both apply ``M = KT^T KT + lam A^T A`` as the TPU kernels do
 (``_matvec_band``, pallas_cg_vmem.py:185), through the gradient masks and
@@ -41,9 +47,10 @@ warm start ``x0``:
   scaled form;
 * the reference's CG otherwise (:func:`stencil_cg.cg_loop`).
 
-The kernel is bound by memory bandwidth: about 21 f32 planes move per
-iteration and lane (F's 11, then the CG state; 103 MB at 960 x 1280), 23
-under Jacobi, against about 50 flops per pixel.
+Per iteration and lane the kernel streams 21 f32 planes (F's 11, then
+the CG state; 103 MB at 960 x 1280; PCG 23), against about 50 flops per
+pixel. On the H100 it takes about twice that stream's time (PERF.md), so
+those bytes alone do not set it.
 """
 
 from __future__ import annotations
@@ -55,9 +62,10 @@ import torch
 from ..ops import gradients as gradops
 from ..ops.grid import tilesum
 from .cg import tol_squared
-from .stencil_cg import (N_SCAL, PART_ROWS, S_E, S_ITERS, S_RR, cg_loop,
-                         check_tensor, depth_rhs_fields, one_lane,
-                         pack_lanes, warm_start_energy)
+from .stencil_cg import (INFO_KEYS, LAYOUTS, N_SCAL, S_E, S_ITERS, S_RR,
+                         TILE_PART_ROWS, cg_loop, check_tensor,
+                         depth_rhs_fields, launch_error, launch_info,
+                         one_lane, pack_lanes, tile_plan, warm_start_energy)
 
 
 def direct_matvec(p, op, gm, ktw, lam: float, sf: int) -> torch.Tensor:
@@ -99,25 +107,30 @@ def _library():
 
     lib = native.load("direct_cg")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.srps_direct_cg.argtypes = [vp] * 13 + [ci, ci, ci, ci, cf, cf, ci, ci,
-                                               ci, ci, vp]
+    lib.srps_direct_cg.argtypes = [vp] * 13 + [
+        ci, ci, ci, ci, cf, cf, ci, ci, ci, ci, ci, ctypes.POINTER(ci), vp]
     lib.srps_direct_cg.restype = ci
     return lib
 
 
 def direct_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
               tol: float = 1e-9, max_iter: int = 100, block=(256, 4),
-              invd=None, b=None, with_energy: bool = False):
-    """The direct-matvec depth CG: the CUDA kernels for a CUDA ``x0``, the
+              invd=None, b=None, with_energy: bool = False, layout=None):
+    """The direct-matvec depth CG: the CUDA kernel for a CUDA ``x0``, the
     plain version for a CPU one. ``x0`` is (h, w) for one problem or (B,
     h, w) for B lanes in one launch; every other input carries the same
     leading axes (``z0u`` is (..., 2, h, w) and is read only with
-    ``with_energy``). ``block`` is the (x, y) thread-block shape. Returns
+    ``with_energy``). ``block`` is the (x, y) thread-block shape.
+    ``layout`` is None or "device", the kernel's one layout ("on-chip",
+    which the stencil and CGS kernels take, is refused here). Returns
     ``(x, iters, rr, e_part)`` like ``cg_pallas_vmem_fromop[_batched](...,
     with_energy=True)``, ``e_part`` None without ``with_energy``. Each
     lane's result is bit for bit that of its own B = 1 launch."""
     if b is not None and with_energy:
         raise ValueError("a given residual has no tracked energy")
+    if layout not in (None, "device"):
+        raise ValueError(f"the direct CG has the device layout only, not "
+                         f"{layout!r}")
     if x0.device.type == "cpu":
         return direct_cg_plain(x0, op, gm, ktw, z0t, z0u, sf=sf, lam=lam,
                                tol=tol, max_iter=max_iter, invd=invd, b=b,
@@ -126,20 +139,24 @@ def direct_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
         one = lambda t: None if t is None else t.unsqueeze(0)  # noqa: E731
         out = direct_cg(*one_lane(x0, op, gm, ktw, z0t), one(z0u), sf=sf,
                         lam=lam, tol=tol, max_iter=max_iter, block=block,
-                        invd=one(invd), b=one(b), with_energy=with_energy)
+                        invd=one(invd), b=one(b), with_energy=with_energy,
+                        layout=layout)
         return tuple(None if t is None else t[0] for t in out)
-    F, R0, (bx, by), nb = pack_lanes("direct_cg", x0, op, gm, ktw, z0t,
-                                     sf=sf, max_iter=max_iter, block=block,
-                                     invd=invd, r0=b is None)
+    F, R0, (bx, by) = pack_lanes("direct_cg", x0, op, gm, ktw, z0t,
+                                 sf=sf, max_iter=max_iter, block=block,
+                                 invd=invd, r0=b is None)
     B, h, w = x0.shape
     dev = x0.device
     if with_energy:
         check_tensor("z0u", z0u, (B, 2, h, w), dev)
     if b is not None:
         check_tensor("b", b, (B, h, w), dev)
+    plan = tile_plan(h, w, (bx, by))
     x, r, p0, p1, wv = (torch.empty_like(x0) for _ in range(5))
-    part = torch.empty(B * PART_ROWS * nb, dtype=torch.float32, device=dev)
+    part = torch.empty(TILE_PART_ROWS * B * plan.tiles, dtype=torch.float32,
+                       device=dev)
     scal = torch.empty((B, N_SCAL), dtype=torch.float32, device=dev)
+    info = (ctypes.c_int * len(INFO_KEYS))()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().srps_direct_cg(
@@ -147,9 +164,11 @@ def direct_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
         x0.data_ptr(), ptr(b), ptr(invd), x.data_ptr(), r.data_ptr(),
         p0.data_ptr(), p1.data_ptr(), wv.data_ptr(), part.data_ptr(),
         scal.data_ptr(), B, h, w, sf, float(lam), tol_squared(tol),
-        int(max_iter), bx, by, int(with_energy), stream)
+        int(max_iter), bx, by, int(with_energy), LAYOUTS[layout], info,
+        stream)
     if err != 0:
-        raise RuntimeError(f"direct CG kernel launch failed: CUDA error {err}")
+        raise launch_error("direct CG", err)
+    direct_cg.last_launch = launch_info(info, plan, 2)
     direct_cg.launches += 1
     if invd is not None:
         direct_cg.jacobi_launches += 1
@@ -162,3 +181,4 @@ def direct_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
 direct_cg.launches = 0
 direct_cg.jacobi_launches = 0
 direct_cg.host_r0_launches = 0
+direct_cg.last_launch = None

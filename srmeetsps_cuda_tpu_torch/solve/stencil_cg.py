@@ -73,14 +73,12 @@ from .cg import tol_squared
 
 N_STENCIL = 9
 # Device scalar slots of the standard-CG kernels (csrc/std_cg.cuh, shared
-# by stencil_cg.cu and direct_cg.cu): r1 is the dot that drives alpha and
-# beta, rr the reported residual.
+# by stencil_cg.cu, direct_cg.cu and shard_cg.cu): r1 is the dot that
+# drives alpha and beta, rr the reported residual.
 S_R1, S_E, S_ITERS, S_RR = 1, 5, 7, 9
 N_SCAL = 10
-# Rows of per-block partial sums per lane (direct_cg.cu, shard_cg.cu).
-PART_ROWS = 3
 # Rows of per-tile partial sums of the persistent kernels (stencil_cg.cu,
-# cgs_cg.cu), each of B x tiles floats.
+# cgs_cg.cu, direct_cg.cu), each of B x tiles floats.
 TILE_PART_ROWS = 4
 # The kernels' jacobi argument.
 JACOBI_MODES = {None: 0, "scaled": 1, "pcg": 2}
@@ -423,8 +421,7 @@ def pack_lanes(kernel: str, x0, op, gm, ktw, z0t, *, sf: int, max_iter: int,
     (and ``invd`` where given) and stack the packs every depth-CG kernel
     reads: F (B, 11, h, w) = [P11..P33, fwd_x, bwd_x, fwd_y, bwd_y, ktw]
     and R0 (B, 4, h, w) = [QB1, QB2, QB3, z0t] (None with ``r0=False``, for
-    a kernel given its residual). Returns ``(F, R0, (bx, by), blocks per
-    lane)``."""
+    a kernel given its residual). Returns ``(F, R0, (bx, by))``."""
     if x0.device.type != "cuda":
         raise ValueError(f"{kernel} runs on cpu or cuda, not {x0.device}")
     if x0.dim() != 3:
@@ -450,7 +447,7 @@ def pack_lanes(kernel: str, x0, op, gm, ktw, z0t, *, sf: int, max_iter: int,
         check_tensor(name, t, (B, h, w), x0.device)
     F = torch.stack([fields[k] for k in F_ROWS], dim=1)
     R0 = torch.stack([op.QB1, op.QB2, op.QB3, z0t], dim=1) if r0 else None
-    return F, R0, (bx, by), (-(-w // bx)) * (-(-h // by))
+    return F, R0, (bx, by)
 
 
 def one_lane(x0, op, gm, *planes):
@@ -486,9 +483,9 @@ def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
                          invd=None if invd is None else invd.unsqueeze(0))
         return tuple(t[0] for t in out)
     form = None if invd is None else jacobi_form(sf)
-    F, R0, (bx, by), _ = pack_lanes("stencil_cg", x0, op, gm, ktw, z0t,
-                                    sf=sf, max_iter=max_iter, block=block,
-                                    invd=invd)
+    F, R0, (bx, by) = pack_lanes("stencil_cg", x0, op, gm, ktw, z0t,
+                                 sf=sf, max_iter=max_iter, block=block,
+                                 invd=invd)
     B, h, w = x0.shape
     dev = x0.device
     check_tensor("z0u", z0u, (B, 2, h, w), dev)

@@ -306,6 +306,126 @@ def test_one_pixel_p_halo_is_exact():
     assert float((bad - want).abs().max()) > 1e-2 * float(want.abs().max())
 
 
+# ---------------------------------------------------------------------------
+# The persistent kernel's phase A (csrc/direct_cg.cu), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+STAGING_FAULTS = ("F halo row dropped", "t1 at the halo from unstaged F")
+# Grids with partial tiles on both edges at each block (h, w multiples of
+# sf; 244 x 324 for sf = 4).
+STAGING_GRID = {1: (242, 322), 2: (242, 322), 4: (244, 324)}
+
+
+def _staging_inputs(h, w, seed=3):
+    """Seeded (r, p_old, invd, op, gm, ktw): a mask with holes, so that the
+    gradient masks switch between forward, backward and none."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda: torch.randn(h, w, generator=g)  # noqa: E731
+    mask = (torch.rand(h, w, generator=g) > 0.15).to(torch.float32)
+    gm = gradops.GradientMasks.from_mask(mask)
+    op = tsrps.DepthOperator(*(rnd() for _ in range(9)), torch.tensor(0.0))
+    invd = torch.rand(h, w, generator=g) + 0.5
+    return rnd(), rnd(), invd, op, gm, rnd().abs()
+
+
+def _staged_matvec(r, p_old, invd, beta, op, gm, ktw, lam, sf, block,
+                   fault=None):
+    """``M p`` with ``p = z + beta p_old`` (``z = invd r``, or ``r``
+    without ``invd``) staged as the kernel's phase A stages it, tile by
+    tile of ``stencil_cg.tile_plan``: r, p_old (invd) and F's 10 fields
+    with a one-pixel halo, zeros outside the image; p formed at every
+    staged pixel; g, h, t1..t3 and the mask products once per staged
+    pixel; w at the tile's pixels from the products of its neighbours, in
+    the kernel's sum order. A neighbour beyond the staged region reads
+    seeded noise: the kernel reads another plane's edge row or a margin
+    column there. This models the staging geometry, not the kernel's
+    roundings: p is rounded twice here as in the kernel and ``cg_loop``,
+    but nvcc may contract the kernel's t1..t3 and w to FMA, which the
+    model does not follow (the kernel is held to ``direct_cg_plain`` on the
+    card instead). ``fault``: one of STAGING_FAULTS."""
+    h, w = r.shape
+    plan = sc.tile_plan(h, w, block)
+    th, tw = plan.th, plan.tw
+    pad = lambda a: torch.nn.functional.pad(  # noqa: E731
+        a, (1, plan.tiles_x * tw + 1 - w, 1, plan.tiles_y * th + 1 - h))
+    names = ("fwd_x", "bwd_x", "fwd_y", "bwd_y", "P11", "P12", "P13", "P22",
+             "P23", "P33")
+    planes = [pad(t) for t in (*gm, *op[:6])]
+    rr, pp, kt = pad(r), pad(p_old), pad(ktw)
+    ii = None if invd is None else pad(invd)
+    noise = torch.Generator().manual_seed(11)
+    out = torch.empty(h, w)
+    for _, i0, j0, rows, cols in plan.tile_rects():
+        win = (slice(i0, i0 + th + 2), slice(j0, j0 + tw + 2))
+        f = dict(zip(names, (a[win].clone() for a in planes)))
+        for a in f.values():
+            if fault == "F halo row dropped":
+                a[0], a[-1] = 0.0, 0.0
+            elif fault == "t1 at the halo from unstaged F":
+                a[:, 0], a[:, -1] = 0.0, 0.0
+        z = rr[win] if ii is None else ii[win] * rr[win]
+        p = z + beta * pp[win]
+        ext = torch.randn(th + 4, tw + 4, generator=noise) * 1e3
+        ext[1:-1, 1:-1] = p
+        pe, pw = ext[1:-1, 2:], ext[1:-1, :-2]
+        ps, pn = ext[2:, 1:-1], ext[:-2, 1:-1]
+        gx = f["fwd_x"] * (pe - p) + f["bwd_x"] * (p - pw)
+        gy = f["fwd_y"] * (ps - p) + f["bwd_y"] * (p - pn)
+        t1 = f["P11"] * gx + f["P12"] * gy - f["P13"] * p
+        t2 = f["P12"] * gx + f["P22"] * gy - f["P23"] * p
+        t3 = f["P13"] * gx + f["P23"] * gy - f["P33"] * p
+        fx, bxt = f["fwd_x"] * t1, f["bwd_x"] * t1
+        fy, byt = f["fwd_y"] * t2, f["bwd_y"] * t2
+        rs, cs = slice(1, th + 1), slice(1, tw + 1)
+        dxt = ((fx[rs, :tw] - fx[rs, cs]) + bxt[rs, cs]) - bxt[rs, 2:]
+        dyt = ((fy[:th, cs] - fy[rs, cs]) + byt[rs, cs]) - byt[2:, cs]
+        ata = (dxt + dyt) - t3[rs, cs]
+        wt = (kt[i0 + 1:i0 + th + 1, j0 + 1:j0 + tw + 1]
+              * tilesum(p[rs, cs], sf) + lam * ata)
+        out[i0:i0 + rows, j0:j0 + cols] = wt[:rows, :cols]
+    return out
+
+
+@pytest.mark.parametrize("block", chip_smoke.BLOCKS,
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+@pytest.mark.parametrize("sf", [1, 2, 4])
+def test_staged_phase_a_matvec_is_direct_matvec(sf, block):
+    """The kernel's phase A staging, modelled: bit for bit ``direct_matvec``
+    of ``p = z + beta p_old``, plain and Jacobi (``z = invd r``), at each
+    block of chip_smoke.BLOCKS (tile plans of partial tiles on both
+    edges)."""
+    h, w = STAGING_GRID[sf]
+    r, p_old, invd, op, gm, ktw = _staging_inputs(h, w)
+    beta, lam = 0.37, 0.7
+    for iv in (None, invd):
+        p = (r if iv is None else iv * r) + beta * p_old
+        want = dc.direct_matvec(p, op, gm, ktw, lam, sf)
+        got = _staged_matvec(r, p_old, iv, beta, op, gm, ktw, lam, sf, block)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fault", STAGING_FAULTS)
+def test_staged_phase_a_faults_fail(fault):
+    """Staging that drops F's halo rows, or takes t1 at the ring's columns
+    from F that was not staged there, is no longer ``direct_matvec``."""
+    h, w = STAGING_GRID[2]
+    r, p_old, invd, op, gm, ktw = _staging_inputs(h, w)
+    want = dc.direct_matvec(r + 0.37 * p_old, op, gm, ktw, 0.7, 2)
+    got = _staged_matvec(r, p_old, None, 0.37, op, gm, ktw, 0.7, 2, (32, 16),
+                         fault=fault)
+    assert float((got - want).abs().max()) > 1e-2 * float(want.abs().max())
+
+
+def test_direct_cg_refuses_the_on_chip_layout():
+    """The direct kernel has the device layout alone: ``layout="on-chip"``
+    (which the stencil and CGS wrappers take) raises before anything runs,
+    on either device."""
+    x0 = torch.zeros(8, 8)
+    with pytest.raises(ValueError, match="device layout only"):
+        dc.direct_cg(x0, None, None, None, None, None, sf=1, lam=1.0,
+                     layout="on-chip")
+
+
 def _faulty(fault, x0, op, gm, ktw, z0t, z0u, invd, *, sf, max_iter):
     """One lane of the direct CG with r0 and the energy in the kernel, run
     to its cap with ``fault`` (``None``: the right recurrence). Returns

@@ -1,7 +1,7 @@
-"""The tiles of the persistent stencil and CGS kernels
+"""The tiles of the persistent stencil, CGS and direct kernels
 (``solve/stencil_cg.py::tile_plan``, ``csrc/persistent.cuh``).
 
-The kernels run only on the card (``chip_smoke.py`` phases 3-3e, which
+The kernels run only on the card (``chip_smoke.py`` phases 3-3f, which
 also hold the layout and the CTA count that the C entry chooses from the
 card's occupancy); what surrounds them is held here: the tiles cover every
 pixel of every lane once, each has one owner and one slot whatever the

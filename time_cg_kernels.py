@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Milliseconds per CG iteration of the stencil and CGS kernels on the card.
+"""Milliseconds per CG iteration of the stencil, CGS and direct kernels on
+the card.
 
     python3 time_cg_kernels.py
 
@@ -9,8 +10,11 @@ two checkouts in turns on one card: ``cd other && python3
 /path/to/time_cg_kernels.py`` (a checkout whose kernels take no ``layout``
 has no device-layout entries). Each entry is CUDA-event time over 5 solves
 at cap 100 (101 CG iterations; 3 at 1088 x 1920 and 4K), on the seeded
-depth operators of ``chip_smoke.stacked_lanes``, divided by 101. Prints
-one JSON line with the card's name and power limit.
+depth operators of ``chip_smoke.stacked_lanes``, divided by 101. The direct
+CG runs in its three forms: r0 in the kernel with the energy tracked
+("direct"), the same with its in-sweep Jacobi PCG ("direct jacobi") and
+given its residual ("direct host_r0"). Prints one JSON line with the
+card's name and power limit.
 """
 
 import json
@@ -29,9 +33,10 @@ def main() -> int:
     import chip_smoke as cs
     from srmeetsps_cuda_tpu_torch import native
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
+    from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
-    native.build_all(["stencil_cg", "cgs_cg"])
+    native.build_all(["stencil_cg", "cgs_cg", "direct_cg"])
     dev = torch.device("cuda")
     lanes2, stacked2 = cs.stacked_lanes(960, 1280, 2, range(4), dev)
     lanes4, _ = cs.stacked_lanes(960, 1280, 4, range(1), dev)
@@ -39,6 +44,21 @@ def main() -> int:
 
     def std(args, **kw):
         return lambda: sc.stencil_cg(*args, lam=1.0, max_iter=100, **kw)
+
+    def direct(args, invd, sf, form, **kw):
+        """The direct CG in ``form`` on the lane inputs ``args`` (x0, op,
+        gm, ktw, z0t, z0u)."""
+        b = None
+        if form == "direct host_r0":
+            b = (sc.depth_rhs_fields(args[1], args[2], args[4], 1.0)
+                 - dc.direct_matvec(args[0], args[1], args[2], args[3], 1.0,
+                                    sf))
+        return lambda: dc.direct_cg(
+            *args, sf=sf, lam=1.0, max_iter=100, b=b,
+            invd=invd if form == "direct jacobi" else None,
+            with_energy=form != "direct host_r0", **kw)
+
+    forms = ("direct", "direct jacobi", "direct host_r0")
 
     runs = {
         "stencil_cg 960x1280 sf 2": std(ln[:6], sf=2),
@@ -57,6 +77,12 @@ def main() -> int:
                 ln[:6], sf=2, layout="device"),
             "cgs_cg 960x1280 sf 2 device layout": lambda: cg.cgs_cg(
                 *ln[:5], sf=2, lam=1.0, max_iter=100, layout="device")})
+    for form in forms:
+        runs[f"{form} 960x1280 sf 2"] = direct(ln[:6], ln[6], 2, form)
+        runs[f"{form} B=4 960x1280 sf 2"] = direct(stacked2[:6], stacked2[6],
+                                                   2, form)
+    runs["direct 960x1280 sf 2 block 32x16"] = direct(
+        ln[:6], ln[6], 2, "direct", block=(32, 16))
     out = {name: cs.cuda_ms(fn, 5) / 101 for name, fn in runs.items()}
     del lanes2, stacked2, lanes4, ln, l4
     for h, w in ((1088, 1920), (2176, 3840)):
@@ -66,6 +92,10 @@ def main() -> int:
         out[f"cgs_cg {h}x{w} sf 2"] = cs.cuda_ms(
             lambda: cg.cgs_cg(*big[:5], sf=2, lam=1.0, max_iter=100),
             3) / 101
+        if h == 2176:
+            for form in forms:
+                out[f"{form} {h}x{w} sf 2"] = cs.cuda_ms(
+                    direct(big[:6], big[6], 2, form), 3) / 101
     print(json.dumps({"ms_per_cg_iteration": out, "card": cs.gpu_label()}))
     return 0
 
