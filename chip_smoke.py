@@ -96,22 +96,32 @@ falls back to the CPU or to a plain version):
    plain version on the card, their outer iterations and energies printed
    beside the kernels';
 3g. the row-shard kernels (``csrc/shard_cg.cu``) on 4 shards of the card
-   against their plain versions on the same shards, on phase 3's grids and
-   at 1088 x 1920 sf = 2, in the standard, CGS and Jacobi forms, from the
-   warm and a cold start at two thread-block shapes (``cg_vs_plain``'s
-   bounds, iteration counts equal); the 4-shard CG against the unsharded
-   kernel of the same recurrence (Jacobi: the direct CG's PCG) within the
-   same bounds; ms per CG iteration of kernel and plain, and the device
-   time of one launch of each shard wrapper;
+   against their plain versions on the same shards, on phase 3's grids, on
+   248 x 322 sf = 2 (a width of no whole number of 16-byte pieces) and at
+   1088 x 1920 sf = 2, in the standard, CGS and Jacobi forms, from the
+   warm and a cold start (``cg_vs_plain``'s bounds, iteration counts
+   equal): the persistent kernels (the route of a one-device mesh: one
+   cooperative launch per solve over every shard) at the thread blocks of
+   BLOCKS, one device launch per solve, a repeat bit-equal at each block,
+   and the per-step kernels (``route="steps"``, the route of shards on
+   distinct cards) at 256 x 4 and 32 x 16, each held to plain and the two
+   routes to each other; the 4-shard CG against the unsharded kernel of
+   the same recurrence (Jacobi: the direct CG's PCG) within the same
+   bounds; ms per CG iteration of both routes and of plain, in turns, the
+   persistent launches' layout, CTAs, shared bytes, registers and spills,
+   and the device time of one launch of each per-step wrapper;
 4j. BASELINE.md configuration 5 (1088 x 1920, n = 20, c = 3, sf = 2)
    through ``parallel.sharded.solve_fused_sharded`` on 4 shards of the
-   card in the three forms: the stopping rule, a repeated solve bit-equal,
-   every depth CG through the shard kernels, at most one outer iteration
-   from the same solve with the plain per-shard steps and every energy
-   within phase 3's bound of it; the same against phase 4g's unsharded run
-   for the standard and CGS forms (Jacobi: printed, as 4g takes the scaled
-   form); then ``--sharded 4`` through the CLI on the phase-4 file (one
-   shard per card present).
+   card in the three forms: twice on the persistent route (a repeated
+   solve bit-equal), once on the per-step route and once with the plain
+   per-shard steps, each run's launch counts read (every depth CG one
+   persistent launch; on the per-step route its kernels' launches); the
+   stopping rule, and each kernel route at most one outer iteration from
+   the plain run with every energy within phase 3's bound of it; the
+   persistent run the same against phase 4g's unsharded run for the
+   standard and CGS forms (Jacobi: printed, as 4g takes the scaled form);
+   then ``--sharded 4`` through the CLI on the phase-4 file (one shard per
+   card present: on one card the persistent kernel).
 
 The line before the last but one is a JSON object with one entry per
 kernel and mode (its times per CG iteration at the main path's shapes, and
@@ -253,11 +263,13 @@ def bound(hw: int, lanes: int, iters: int, planes: int, flops: dict,
 # writes the other; in device memory x and p are read and written too. sf =
 # 4 reads ktw. The direct CG (device layout only) reads F's 11 planes (ktw
 # at every sf) where the stencil's reads 9 C, and PCG invd in both phases.
+# The row-shard CG (device layout only) streams as the stencil and CGS
+# kernels in device memory, its Jacobi form as the stencil's PCG.
 def persistent_planes(kernel: str, form, onchip: bool, sf: int) -> int:
     planes = 15 if onchip else 19
     if kernel == "direct_cg":
         return planes + 2 + (2 if "jacobi" in form else 0)
-    if kernel == "stencil_cg" and form == "pcg":
+    if form in ("pcg", "jacobi"):
         planes += 2
     return planes + (1 if sf == 4 else 0)
 
@@ -265,9 +277,10 @@ def persistent_planes(kernel: str, form, onchip: bool, sf: int) -> int:
 def ptxas_report(name: str) -> dict:
     """Registers and spill bytes of each persistent kernel instance of
     ``csrc/<name>.cu`` from nvcc's ``-Xptxas -v`` report: {"cg_kernel<mode,
-    onchip,bx,by>", "cgs_kernel<onchip,bx,by>" or "direct_kernel<jacobi,
-    bx,by>": {"registers", "spill_stores", "spill_loads"}} (bx, by: the
-    block compiled in, or 0, 0)."""
+    onchip,bx,by>", "cgs_kernel<onchip,bx,by>", "direct_kernel<jacobi,
+    bx,by>", "shard_std_kernel<jacobi,bx,by>" or "shard_cgs_kernel<bx,
+    by>": {"registers", "spill_stores", "spill_loads"}} (bx, by: the block
+    compiled in, or 0, 0)."""
     import re
 
     from srmeetsps_cuda_tpu_torch import native
@@ -277,9 +290,9 @@ def ptxas_report(name: str) -> dict:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\S+?)'?(?: for |$)", line)
         if m:
-            k = re.search(r"(cgs_kernel|cg_kernel|direct_kernel)I"
-                          r"(?:Li(\d)E)?Lb([01])ELi(\d+)ELi(\d+)EE",
-                          m.group(1))
+            k = re.search(r"(shard_std_kernel|shard_cgs_kernel|cgs_kernel|"
+                          r"cg_kernel|direct_kernel)I(?:Li(\d)E)?"
+                          r"(?:Lb([01])E)?Li(\d+)ELi(\d+)EE", m.group(1))
             cur = None if k is None else (
                 k.group(1) + "<" + ",".join(
                     g for g in k.groups()[1:] if g is not None) + ">")
@@ -342,6 +355,9 @@ def launch_summary(kernel: str, form, infos: dict, sf: int) -> tuple:
         onchip = int(info["onchip"])
         if kernel == "cgs_cg":
             inst = f"cgs_kernel<{onchip},{shape}>"
+        elif kernel == "shard_cg":
+            inst = (f"shard_cgs_kernel<{shape}>" if form == "cgs" else
+                    f"shard_std_kernel<{int(form == 'jacobi')},{shape}>")
         elif kernel == "direct_cg":
             inst = f"direct_kernel<{int('jacobi' in form)},{shape}>"
         else:
@@ -1035,7 +1051,8 @@ def direct_vs_stencil(label, grids):
 def shard_call(form, ln, mesh, x0=None, plain=False, **kw):
     """``(x, iterations, residual)`` of the row-shard CG in ``form`` on the
     lane inputs ``ln`` = (x0, op, gm, ktw, z0t, z0u, invd) over ``mesh``:
-    the shard kernels, or with ``plain`` their plain versions."""
+    the shard kernels of the mesh's route (``route="steps"`` in ``kw``: the
+    per-step kernels), or with ``plain`` their plain versions."""
     from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
 
     x0 = ln[0] if x0 is None else x0
@@ -1132,19 +1149,45 @@ def shard_launch_ms(form, ln, mesh, sf):
     return out
 
 
+def held(where, got, want, x0, start, cap):
+    """``(update, residual gap)`` of a row-shard CG result ``got`` = (x,
+    iterations, residual) against ``want``: equal iterations, a finite x,
+    and both gaps within UPD_BOUND / RES_BOUND, or it raises."""
+    import torch
+
+    (x, k, r), (px, pk, pr) = got, want
+    if int(k) != int(pk):
+        raise AssertionError(f"{where}: iterations {int(k)}, against "
+                             f"{int(pk)}")
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{where}: x is not finite")
+    upd = rel_rms(x - x0, px - x0)
+    gap = abs(float(r) - float(pr)) / abs(float(pr))
+    if upd > UPD_BOUND[start][cap] or gap > RES_BOUND[start][cap]:
+        raise AssertionError(f"{where}: relative RMS of the update "
+                             f"{upd:.3e}, relative gap of the residual "
+                             f"{gap:.3e}")
+    return upd, gap
+
+
 def shard_vs_plain(label, grids, timed, shards=4):
     """Phase 3g on ``grids``: ``(h, w, sf) -> (lanes, stacked)``. For each
     form of the row-shard CG on ``shards`` shards of the card and 2 seeds,
-    from the warm start and a cold start x0 = 0, at two thread-block
-    shapes: the kernels against their plain versions on the same shards
-    (iteration counts equal, the update x - x0 and the residual after 2 and
-    12 iterations within UPD_BOUND / RES_BOUND, each shard's launches
-    counted), a repeated run bit-equal, and the sharded kernels against the
+    from the warm start and a cold start x0 = 0, after 2 and 12 iterations
+    (``held``): the persistent kernels (the mesh's route) at the blocks of
+    BLOCKS and the per-step kernels (``route="steps"``) at 256 x 4 and 32 x
+    16 against the plain per-shard steps on the same shards, and the two
+    routes against each other at those blocks; each persistent solve one
+    launch counted and one device launch, each per-step run's launches
+    counted on every shard; a repeated run bit-equal on both routes (the
+    persistent one at every block); the persistent CG against the
     unsharded kernel of the same recurrence (unsharded_call) after 2
-    iterations, within the same bounds. On the grids in ``timed``, ms per
-    CG iteration of kernel and plain at cap 100, of one prologue with one
-    iteration, and the device time of one launch of each wrapper on one
-    shard (shard_launch_ms). Returns {form: {grid: entry}}."""
+    iterations. On the grids in ``timed``, ms per CG iteration of the
+    persistent route, the per-step route and plain at cap 100, in turns,
+    the per-step route's prologue with one iteration and the device time
+    of one launch of each per-step wrapper on one shard (shard_launch_ms).
+    Returns {form: {grid: entry}}: the per-step route's figures, those of
+    the persistent kernels under ``persistent``."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
@@ -1154,145 +1197,224 @@ def shard_vs_plain(label, grids, timed, shards=4):
     counters = {"std": (sk.step_a, "launches"),
                 "cgs": (sk.cgs_step, "launches"),
                 "jacobi": (sk.step_b, "jacobi_launches")}
+    routes = (("persistent", BLOCKS), ("steps", BLOCKS[:2]))
     out = {form: {} for form in SHARD_FORMS}
     for (h, w, sf), (lanes, _) in grids.items():
         for form in SHARD_FORMS:
             obj, attr = counters[form]
-            gaps, vs_one = {}, []
+            gaps = {route: {} for route in ("persistent", "steps", "routes")}
+            infos, vs_one, max_dx = {}, [], {}
             for seed, ln in enumerate(lanes[:2]):
                 for start, cap in itertools.product(("warm", "cold"),
                                                     (2, 12)):
                     x0 = ln[0] if start == "warm" else torch.zeros_like(ln[0])
-                    px, pk, pr = shard_call(form, ln, mesh, x0, plain=True,
-                                            sf=sf, lam=1.0, max_iter=cap)
-                    for block in ((256, 4), (32, 16)):
-                        where = (f"shard_cg {form} {h}x{w} sf={sf} seed "
-                                 f"{seed} {start} cap {cap} block {block}")
-                        before = getattr(obj, attr)
-                        x, k, r = shard_call(form, ln, mesh, x0, sf=sf,
-                                             lam=1.0, max_iter=cap,
-                                             block=block)
-                        torch.cuda.synchronize()
-                        if getattr(obj, attr) != before + shards * (cap + 1):
-                            raise AssertionError(f"{where}: launches not "
-                                                 "counted on every shard")
-                        if int(k) != int(pk):
-                            raise AssertionError(
-                                f"{where}: iterations kernel {int(k)}, plain "
-                                f"{int(pk)}")
-                        if not bool(torch.isfinite(x).all()):
-                            raise AssertionError(f"{where}: x is not finite")
-                        upd = rel_rms(x - x0, px - x0)
-                        gap = abs(float(r) - float(pr)) / abs(float(pr))
-                        old = gaps.get((start, cap), (0.0, 0.0))
-                        gaps[start, cap] = (max(old[0], upd),
-                                            max(old[1], gap))
-                        if (seed, start, cap, block) == (0, "warm", 2,
-                                                         (256, 4)):
-                            max_dx = float((x - px).abs().max())
-                        if (upd > UPD_BOUND[start][cap]
-                                or gap > RES_BOUND[start][cap]):
-                            raise AssertionError(
-                                f"{where}: relative RMS of the update "
-                                f"{upd:.3e}, relative gap of the residual "
-                                f"{gap:.3e}")
+                    kw = dict(sf=sf, lam=1.0, max_iter=cap)
+                    plain = shard_call(form, ln, mesh, x0, plain=True, **kw)
+                    runs = {}
+                    for route, blocks in routes:
+                        for block in blocks:
+                            where = (f"shard_cg {form} {route} {h}x{w} sf={sf}"
+                                     f" seed {seed} {start} cap {cap} block "
+                                     f"{block}")
+                            before = (scg.persistent.launches,
+                                      getattr(obj, attr))
+                            got = shard_call(
+                                form, ln, mesh, x0, block=block,
+                                route=None if route == "persistent"
+                                else route, **kw)
+                            torch.cuda.synchronize()
+                            after = (scg.persistent.launches,
+                                     getattr(obj, attr))
+                            want = ((before[0] + 1, before[1])
+                                    if route == "persistent" else
+                                    (before[0],
+                                     before[1] + shards * (cap + 1)))
+                            if after != want:
+                                raise AssertionError(
+                                    f"{where}: launches {after}, expected "
+                                    f"{want} (persistent, per-step)")
+                            if route == "persistent":
+                                infos[block] = one_launch(scg.persistent,
+                                                          where)
+                            runs[route, block] = got
+                            g = gaps[route].get((start, cap), (0.0, 0.0))
+                            gaps[route][start, cap] = tuple(map(max, g, held(
+                                where, got, plain, x0, start, cap)))
+                            if (seed, start, cap, block) == (0, "warm", 2,
+                                                             (256, 4)):
+                                max_dx[route] = float(
+                                    (got[0] - plain[0]).abs().max())
+                    for block in BLOCKS[:2]:
+                        g = gaps["routes"].get((start, cap), (0.0, 0.0))
+                        gaps["routes"][start, cap] = tuple(map(max, g, held(
+                            f"shard_cg {form} {h}x{w} sf={sf} seed {seed} "
+                            f"{start} cap {cap} block {block}: persistent "
+                            "vs per-step route", runs["persistent", block],
+                            runs["steps", block], x0, start, cap)))
                     if seed == 0 and cap == 2:
-                        x1, _, r1 = unsharded_call(form, ln, x0, sf=sf,
-                                                   lam=1.0, max_iter=cap)
-                        upd = rel_rms(x - x0, x1 - x0)
-                        gap = abs(float(r) - float(r1)) / abs(float(r1))
-                        vs_one.append(f"{start} {upd:.2e} / {gap:.2e}")
-                        if (upd > UPD_BOUND[start][cap]
-                                or gap > RES_BOUND[start][cap]):
-                            raise AssertionError(
-                                f"{where}: against the unsharded kernel, "
-                                f"update {upd:.3e}, residual {gap:.3e}")
-            a = shard_call(form, lanes[0], mesh, sf=sf, lam=1.0, max_iter=12)
-            b = shard_call(form, lanes[0], mesh, sf=sf, lam=1.0, max_iter=12)
-            if not all(torch.equal(u, v) for u, v in zip(a, b)):
-                raise AssertionError(f"shard_cg {form} {h}x{w} sf={sf}: a "
-                                     "repeated run differs")
-            entry = {"update_rel_rms": gaps["warm", 2][0],
-                     "residual_rel_gap": gaps["warm", 2][1],
-                     "max_abs_err": max_dx}
+                        one = unsharded_call(form, ln, x0, **kw)
+                        u, g = held(f"shard_cg {form} {h}x{w} sf={sf} "
+                                    f"{start}: against the unsharded kernel",
+                                    runs["persistent", (256, 4)], one, x0,
+                                    start, cap)
+                        vs_one.append(f"{start} {u:.2e} / {g:.2e}")
+            for route, blocks in routes:
+                for block in blocks:
+                    kw = dict(sf=sf, lam=1.0, max_iter=12, block=block,
+                              route=None if route == "persistent" else route)
+                    a = shard_call(form, lanes[0], mesh, **kw)
+                    b = shard_call(form, lanes[0], mesh, **kw)
+                    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                        raise AssertionError(
+                            f"shard_cg {form} {route} {h}x{w} sf={sf} block "
+                            f"{block}: a repeated run differs")
+            summary, fields = launch_summary("shard_cg", form, infos, sf)
+            entry = {"update_rel_rms": gaps["steps"]["warm", 2][0],
+                     "residual_rel_gap": gaps["steps"]["warm", 2][1],
+                     "max_abs_err": max_dx["steps"],
+                     "persistent": {
+                         "update_rel_rms": gaps["persistent"]["warm", 2][0],
+                         "residual_rel_gap":
+                             gaps["persistent"]["warm", 2][1],
+                         "max_abs_err": max_dx["persistent"],
+                         "launch": fields}}
             timing = ""
             if (h, w, sf) in timed:
                 ln, cap = lanes[0], 100
-                run = lambda plain, c=cap: shard_call(  # noqa: E731
-                    form, ln, mesh, plain=plain, sf=sf, lam=1.0, max_iter=c)
-                t_k1, t_p1, t_p2, t_k2 = (
-                    cuda_ms(lambda: run(False), 2), cuda_ms(lambda: run(True), 1),
-                    cuda_ms(lambda: run(True), 1), cuda_ms(lambda: run(False), 2))
-                n_it = int(run(False)[1])
-                flops, planes, stream = SHARD_FORMS[form]
+                run = lambda route, c=cap: shard_call(  # noqa: E731
+                    form, ln, mesh, plain=route == "plain", sf=sf, lam=1.0,
+                    max_iter=c, route="steps" if route == "steps" else None)
+                reps = {"persistent": 5, "steps": 2, "plain": 1}
+                t = {r: [] for r in reps}
+                for r in ("persistent", "steps", "plain", "plain", "steps",
+                          "persistent"):
+                    t[r].append(cuda_ms(lambda: run(r), reps[r]) / (cap + 1))
+                ms = {r: sum(v) / len(v) for r, v in t.items()}
+                n_it = int(run("persistent")[1])
+                n_steps = int(run("steps")[1])
+                flops, planes, _ = SHARD_FORMS[form]
+                p_stream = persistent_planes("shard_cg", form, False, sf)
                 b_ms, b_by, s_ms = bound(h * w, 1, n_it, planes, flops, sf,
-                                         stream, per=cap + 1)
-                entry.update(ms=(t_k1 + t_k2) / 2 / (cap + 1),
-                             plain_ms=(t_p1 + t_p2) / 2 / (cap + 1),
+                                         p_stream, per=cap + 1)
+                entry["persistent"].update(
+                    ms=ms["persistent"], plain_ms=ms["plain"],
+                    steps_ms=ms["steps"], bound_ms=b_ms, bound_by=b_by,
+                    stream_bound_ms=s_ms, cg_iterations=n_it,
+                    ms_in_turns=t,
+                    unit=f"per CG iteration of the {shards}-shard CG, one "
+                         f"launch per solve, {h}x{w} sf {sf}, {cap + 1} "
+                         "launched")
+                b_ms, b_by, s_ms = bound(h * w, 1, n_steps, planes, flops,
+                                         sf, SHARD_FORMS[form][2],
+                                         per=cap + 1)
+                entry.update(ms=ms["steps"], plain_ms=ms["plain"],
                              bound_ms=b_ms, bound_by=b_by,
-                             stream_bound_ms=s_ms, cg_iterations=n_it,
+                             stream_bound_ms=s_ms, cg_iterations=n_steps,
                              unit=f"per CG iteration of the {shards}-shard "
-                                  f"CG, {h}x{w} sf {sf}, {cap + 1} launched")
-                timing = (f"; kernel {entry['ms']:.4f} ms/CG-iter, plain "
-                          f"{entry['plain_ms']:.4f}, bound {b_ms:.5f} "
-                          f"({b_by}), stream bound {s_ms:.4f}")
+                                  f"CG on the per-step route, {h}x{w} sf "
+                                  f"{sf}, {cap + 1} launched")
+                timing = (f"; ms/CG-iter persistent {ms['persistent']:.4f}, "
+                          f"per-step {ms['steps']:.4f}, plain "
+                          f"{ms['plain']:.4f} (in turns: "
+                          + ", ".join(f"{r} " + " / ".join(
+                              f"{v:.4f}" for v in t[r]) for r in t)
+                          + f"), bound {b_ms:.5f} ({b_by}), stream "
+                          f"{entry['persistent']['stream_bound_ms']:.4f} "
+                          f"(per-step {s_ms:.4f}), CG iterations {n_it} "
+                          f"(per-step {n_steps})")
                 if form != "cgs":
-                    t_k = cuda_ms(lambda: run(False, 0), 3)
-                    t_p = cuda_ms(lambda: run(True, 0), 2)
+                    steps0 = lambda: shard_call(  # noqa: E731
+                        form, ln, mesh, sf=sf, lam=1.0, max_iter=0,
+                        route="steps")
+                    t_k = cuda_ms(steps0, 3)
+                    t_p = cuda_ms(lambda: shard_call(
+                        form, ln, mesh, plain=True, sf=sf, lam=1.0,
+                        max_iter=0), 2)
                     p_ms, p_by, _ = bound(h * w, 1, 1, planes, flops, sf,
-                                          stream)
+                                          SHARD_FORMS[form][2])
                     entry["prologue"] = {
                         "ms": t_k, "plain_ms": t_p, "bound_ms": p_ms,
                         "bound_by": p_by,
                         "unit": f"one prologue and one CG iteration on "
-                                f"{shards} shards, {h}x{w} sf {sf}"}
-                    timing += (f"; prologue + 1 iteration {t_k:.4f} ms, "
-                               f"plain {t_p:.4f}")
+                                f"{shards} shards, per-step route, {h}x{w} "
+                                f"sf {sf}"}
+                    timing += (f"; per-step prologue + 1 iteration "
+                               f"{t_k:.4f} ms, plain {t_p:.4f}")
                 launch = shard_launch_ms(form, ln, mesh, sf)
-                entry["launch"] = {name: {"device_ms": ms, "stream_ms": sm}
-                                   for name, (ms, sm) in launch.items()}
+                entry["launch"] = {name: {"device_ms": ms_, "stream_ms": sm}
+                                   for name, (ms_, sm) in launch.items()}
                 timing += "; device ms per launch on one shard: " + ", ".join(
                     f"{name[9:]} "
-                    + ("not measured" if ms is None else f"{ms:.4f}")
+                    + ("not measured" if ms_ is None else f"{ms_:.4f}")
                     + f" (stream {sm:.4f})"
-                    for name, (ms, sm) in launch.items())
+                    for name, (ms_, sm) in launch.items())
             out[form][h, w, sf] = entry
+            worst = "; ".join(
+                f"{route}: " + ", ".join(f"{st} cap {c} {u:.2e} / {g:.2e}"
+                                         for (st, c), (u, g) in v.items())
+                for route, v in gaps.items())
             print(f"[{label}] shard_cg {form} {shards} shards {h}x{w} "
                   f"sf={sf}: iterations equal; relative RMS of the update / "
-                  "relative gap of the residual, worst of 2 seeds and "
-                  "blocks 256x4, 32x16: " + "; ".join(
-                      f"{st} cap {c} {u:.2e} / {g:.2e}"
-                      for (st, c), (u, g) in gaps.items())
-                  + f"; max|dx| warm cap 2 {max_dx:.3e}; repeat bit-equal; "
-                  "vs the unsharded kernel at cap 2: " + ", ".join(vs_one)
-                  + timing, flush=True)
+                  "relative gap of the residual, worst of 2 seeds and the "
+                  "blocks, against plain (persistent at 256x4, 32x16, 30x3; "
+                  "per-step at 256x4, 32x16) and between the routes: "
+                  + worst + f"; max|dx| warm cap 2 persistent "
+                  f"{max_dx['persistent']:.3e}, per-step "
+                  f"{max_dx['steps']:.3e}; one device launch per persistent"
+                  " solve, repeats bit-equal on both routes; persistent vs "
+                  "the unsharded kernel at cap 2: " + ", ".join(vs_one)
+                  + timing + "; persistent launches: " + summary, flush=True)
     return out
 
 
-def shard_entries(per_form, launches, grid, others):
-    """The ``kernels`` line's entries of the row-shard kernels, one per TPU
-    kernel: the figures of ``grid`` (those of ``others`` under ``grids``)
-    of the form that runs the kernel, and the launches of phase 4j's runs,
-    ``launches[form]``. ``ms`` is the whole sharded CG's per iteration,
-    host launches included; ``device_ms_per_launch`` the card's time for
-    one launch of this kernel's wrapper on one shard, beside its planes'
+def shard_entries(per_form, launches, steps_launches, grid, others):
+    """The ``kernels`` line's entries of the row-shard kernels: the two
+    persistent kernels (the standard one with its Jacobi form under
+    ``jacobi``), then one per-step kernel per TPU kernel, each with the
+    figures of ``grid`` (those of ``others`` under ``grids``) of the form
+    that runs the kernel, and the launches of phase 4j's runs,
+    ``launches[form]`` (persistent route) and ``steps_launches[form]``
+    (per-step route). ``ms`` is the whole sharded CG's per iteration, host
+    launches included; ``device_ms_per_launch`` the card's time for one
+    launch of a per-step wrapper on one shard, beside its planes'
     streaming time ``launch_stream_ms``."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "stream_bound_ms",
             "cg_iterations", "update_rel_rms", "residual_rel_gap")
+    src_file = "srmeetsps_cuda_tpu_torch/csrc/shard_cg.cu"
+
+    def persistent(form, name, lines, counter):
+        e = per_form[form][grid]["persistent"]
+        entry = {"name": name, "route": "cuda", "source": src_file,
+                 "replaces": f"{SHARD_REPLACES}{lines[0]}",
+                 "also_replaces": [f"{SHARD_REPLACES}{n}" for n in lines[1:]],
+                 "launches": launches[form][counter], "library_ms": None,
+                 "form": form}
+        entry.update({k: v for k, v in e.items() if k != "ms_in_turns"})
+        entry["grids"] = {grid_key(g): {k: v for k, v in
+                                        per_form[form][g]["persistent"].items()
+                                        if k in keys + ("launch",)}
+                          for g in others}
+        return entry
+
+    std = persistent("std", "shard_cg persistent std", (375, 124, 440),
+                     "shard_cg persistent")
+    std["jacobi"] = persistent("jacobi", "shard_cg persistent std jacobi",
+                               (495, 124, 375), "shard_cg persistent jacobi")
+    out = [std, persistent("cgs", "shard_cg persistent cgs", (249, 124),
+                           "shard_cg persistent cgs")]
     rows = (("shard_cg prologue", "std", 124),
             ("shard_cg cgs_sweep", "cgs", 249),
             ("shard_cg sweep_a", "std", 375),
             ("shard_cg sweep_b", "std", 440),
             ("shard_cg sweep_b jacobi", "jacobi", 495))
-    out = []
     for name, form, line in rows:
         src = per_form[form][grid]
         figures = src["prologue"] if name.endswith("prologue") else src
-        entry = {"name": name, "route": "cuda",
-                 "source": "srmeetsps_cuda_tpu_torch/csrc/shard_cg.cu",
+        entry = {"name": name, "route": "cuda", "source": src_file,
                  "replaces": f"{SHARD_REPLACES}{line}",
-                 "launches": launches[form][name], "library_ms": None,
-                 "max_abs_err": src["max_abs_err"], "form": form}
+                 "launches": steps_launches[form][name], "library_ms": None,
+                 "max_abs_err": src["max_abs_err"], "form": form,
+                 "shard_route": "steps"}
         entry.update({k: figures[k] for k in keys + ("unit",)
                       if k in figures})
 
@@ -1358,12 +1480,15 @@ def kernel_counters():
     ``stencil_cg`` counts every run of the stencil CG kernels, ``stencil_cg
     jacobi`` those in a Jacobi form; ``direct_cg`` every run of the direct
     CG kernels, ``direct_cg jacobi`` those with invd and ``direct_cg
-    host_r0`` those given their residual; ``shard_cg ...`` the launches of
-    each row-shard kernel, one per shard."""
+    host_r0`` those given their residual; ``shard_cg persistent`` every
+    persistent row-shard launch (one per sharded CG solve), ``... jacobi``
+    and ``... cgs`` those of the Jacobi and CGS forms; the other ``shard_cg
+    ...`` the launches of each per-step row-shard kernel, one per shard."""
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
     from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
+    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
     from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
 
     return {"stencil_cg": (sc.stencil_cg, "launches"),
@@ -1372,6 +1497,9 @@ def kernel_counters():
             "direct_cg": (dc.direct_cg, "launches"),
             "direct_cg jacobi": (dc.direct_cg, "jacobi_launches"),
             "direct_cg host_r0": (dc.direct_cg, "host_r0_launches"),
+            "shard_cg persistent": (scg.persistent, "launches"),
+            "shard_cg persistent jacobi": (scg.persistent, "jacobi_launches"),
+            "shard_cg persistent cgs": (scg.persistent, "cgs_launches"),
             "shard_cg prologue": (sk.prologue, "launches"),
             "shard_cg sweep_a": (sk.step_a, "launches"),
             "shard_cg sweep_b": (sk.step_b, "launches"),
@@ -1408,13 +1536,19 @@ def expected_counts(n: int, cli_extra=(), operator: str = "stencil") -> dict:
             **shard_counts(0, 0, 0, "std")}
 
 
-def shard_counts(n: int, shards: int, cap: int, form: str) -> dict:
+def shard_counts(n: int, shards: int, cap: int, form: str,
+                 route: str = "persistent") -> dict:
     """The row-shard kernels' counts of ``n`` sharded depth solves in
-    ``form`` on ``shards`` shards at ``cap``: a prologue per shard (CGS: and
-    its w0 launch) and cap + 1 sweeps per shard."""
+    ``form`` on ``shards`` shards at ``cap``: on the persistent route one
+    launch per solve; on the per-step route (``"steps"``) a prologue per
+    shard (CGS: and its w0 launch) and cap + 1 sweeps per shard."""
+    per, n = (n, 0) if route == "persistent" else (0, n)
     it = n * shards * (cap + 1)
     std = form != "cgs"
-    return {"shard_cg prologue": n * shards * (1 if std else 2),
+    return {"shard_cg persistent": per,
+            "shard_cg persistent jacobi": per if form == "jacobi" else 0,
+            "shard_cg persistent cgs": 0 if std else per,
+            "shard_cg prologue": n * shards * (1 if std else 2),
             "shard_cg sweep_a": it if std else 0,
             "shard_cg sweep_b": it if std else 0,
             "shard_cg sweep_b jacobi": it if form == "jacobi" else 0,
@@ -1749,33 +1883,42 @@ def shard_form(cfg) -> str:
 
 
 @contextlib.contextmanager
-def plain_shard_steps():
-    """The row-shard loops run the plain per-shard steps on every device
-    while this holds (the loops read ``shard_kernels.KERNELS`` per solve)."""
-    from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
+def shard_route(route: str):
+    """Every row-shard solve takes ``route`` ("steps" or "plain", see
+    ``shard_cg.choose_route``) while this holds, whatever its mesh (the
+    solves ask ``choose_route`` per solve)."""
+    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
 
-    kernels = sk.KERNELS
-    sk.KERNELS = sk.PLAIN
+    choose = scg.choose_route
+    scg.choose_route = lambda *args, **kw: route
     try:
         yield
     finally:
-        sk.KERNELS = kernels
+        scg.choose_route = choose
+
+
+def plain_shard_steps():
+    """The row-shard solves run the plain per-shard steps on every device
+    while this holds."""
+    return shard_route("plain")
 
 
 def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
     """Phase 4j: ``data`` through ``parallel.sharded.solve_fused_sharded``
-    on ``shards`` shards of the card with ``cfg``, twice with the kernels
-    and once with their plain versions (plain_shard_steps), the launch
-    counts set to 0 just before each solve and read just after. Checks a
-    finite depth, the stopping rule, the repeat bit for bit, the launches
-    (every depth CG through the shard kernels, no other CG kernel; none in
-    the plain run) and, against the plain run (the same recurrence), at
-    most one outer iteration more or less and every energy within
-    ``energy_bound(plain[0], const)``. Against the unsharded run ``ref``
-    (energies) of the same file: the standard and CGS runs held as
-    against the plain run; the Jacobi run's gap printed, since the
-    unsharded solve runs the scaled form at sf <= 2. Returns the run as
-    main_path does."""
+    on ``shards`` shards of the card with ``cfg``: twice on the mesh's
+    route (persistent), once on the per-step route and once with the plain
+    per-shard steps (``shard_route``), the launch counts set to 0 just
+    before each solve and read just after. Checks a finite depth, the
+    stopping rule, the repeat bit for bit, the launches (every depth CG one
+    persistent launch, or on the per-step route its kernels' launches; no
+    other CG kernel; none in the plain run) and, for both kernel routes
+    against the plain run (the same recurrence), at most one outer
+    iteration more or less and every energy within ``energy_bound(plain[0],
+    const)``. Against the unsharded run ``ref`` (energies) of the same
+    file: the standard and CGS persistent runs held as against the plain
+    run; the Jacobi run's gap printed, since the unsharded solve runs the
+    scaled form at sf <= 2. Returns the persistent run as main_path does,
+    with the per-step run under ``steps``."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
@@ -1787,83 +1930,111 @@ def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
     form = shard_form(cfg)
     h, w = data.mask.shape
     what = f"sharded {form} {shards} shards {h}x{w} n={data.I.shape[0]}"
-    runs = []
-    for plain in (False, False, True):
+    runs = {}
+    for route in ("persistent", "persistent", "steps", "plain"):
         prob, st = prepare(data, cfg, dev)
         cg_iters = []
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        with plain_shard_steps() if plain else contextlib.nullcontext():
+        with (contextlib.nullcontext() if route == "persistent"
+              else shard_route(route)):
             final, trace = sharded.solve_fused_sharded(
                 st, prob, int(data.sf), cfg, mesh,
                 on_iteration=lambda s: cg_iters.append(s.cg_iters))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        runs.append((trace[:final.iteration].tolist(), dt, read_counts(),
-                     [int(c) for c in cg_iters], final.z))
-    energies, dt, launches, cg_iters, z = runs[0]
-    plain_e, plain_dt, plain_launches, plain_cg, _ = runs[2]
+        runs.setdefault(route, []).append(dict(
+            energies=trace[:final.iteration].tolist(), seconds=dt,
+            launches=read_counts(), cg_iters=[int(c) for c in cg_iters],
+            z=final.z))
+    (first, again), (steps,), (plain,) = (runs[r] for r in (
+        "persistent", "steps", "plain"))
+    energies = first["energies"]
     n_it = len(energies)
-    if runs[1][0] != energies or not torch.equal(runs[1][4], z):
-        raise AssertionError(f"{what}: a repeated solve gave {runs[1][0]}, "
-                             f"the first {energies}")
-    if not all(map(math.isfinite, energies + plain_e)):
-        raise AssertionError(f"{what}: energies not finite: {energies}, "
-                             f"plain {plain_e}")
-    for e in (energies, plain_e):
-        if not stop_rule_held(e, cfg.tolerance, cfg.max_iterations):
-            raise AssertionError(f"{what}: stopping rule violated: {e}")
-    want = dict(expected_counts(0),
-                **shard_counts(n_it, shards, cfg.cg_max_iter, form))
-    if launches != want or any(plain_launches.values()):
-        raise AssertionError(f"{what}: kernel runs {launches}, expected "
-                             f"{want}; in the plain run {plain_launches}")
+    if again["energies"] != energies or not torch.equal(again["z"],
+                                                        first["z"]):
+        raise AssertionError(f"{what}: a repeated solve gave "
+                             f"{again['energies']}, the first {energies}")
     cap = cfg.cg_max_iter + 1
-    if not all(c == cap or (form == "jacobi" and 0 < c < cap)
-               for c in cg_iters + plain_cg):
-        raise AssertionError(f"{what}: CG iterations {cg_iters} (plain "
-                             f"{plain_cg}) off the cap")
+    for name, r in (("persistent", first), ("per-step", steps),
+                    ("plain", plain)):
+        e = r["energies"]
+        if not all(map(math.isfinite, e)):
+            raise AssertionError(f"{what}: {name} energies not finite: {e}")
+        if not stop_rule_held(e, cfg.tolerance, cfg.max_iterations):
+            raise AssertionError(f"{what}: {name} stopping rule violated: "
+                                 f"{e}")
+        if not all(c == cap or (form == "jacobi" and 0 < c < cap)
+                   for c in r["cg_iters"]):
+            raise AssertionError(f"{what}: {name} CG iterations "
+                                 f"{r['cg_iters']} off the cap")
+    for name, r, route in (("persistent", first, "persistent"),
+                           ("repeated", again, "persistent"),
+                           ("per-step", steps, "steps")):
+        want = dict(expected_counts(0), **shard_counts(
+            len(r["energies"]), shards, cfg.cg_max_iter, form, route))
+        if r["launches"] != want:
+            raise AssertionError(f"{what}: {name} run's kernel runs "
+                                 f"{r['launches']}, expected {want}")
+    if any(plain["launches"].values()):
+        raise AssertionError(f"{what}: kernels ran in the plain run: "
+                             f"{plain['launches']}")
     m = torch.as_tensor(data.mask) != 0
-    z = z.cpu()
+    z = first["z"].cpu()
     if not bool(torch.isfinite(z).all()):
         raise AssertionError(f"{what}: final depth is not finite")
     rmse = float((z[m] - torch.as_tensor(z_true)[m]).double().square()
                  .mean().sqrt())
-    held = []
-    for other, e_ref, hold in (("plain", plain_e, True),
-                               ("unsharded", ref, form != "jacobi")):
-        gap = max(abs(x - y) for x, y in zip(energies, e_ref))
+    out = []
+    for name, e, e_ref, other, hold in (
+            ("persistent", energies, plain["energies"], "plain", True),
+            ("per-step", steps["energies"], plain["energies"], "plain",
+             True),
+            ("persistent", energies, steps["energies"], "per-step", True),
+            ("persistent", energies, ref, "unsharded", form != "jacobi")):
+        gap = max(abs(x - y) for x, y in zip(e, e_ref))
         bnd = energy_bound(e_ref[0], const)
-        held.append(f"the {other} run: {len(e_ref)} outer iterations, "
-                    f"energies max gap {gap:.4f} "
-                    + ("within" if hold else "printed against")
-                    + f" phase 3's bound {bnd:.3f}")
+        out.append(f"{name} vs the {other} run ({len(e_ref)} outer "
+                   f"iterations): energies max gap {gap:.4f} "
+                   + ("within" if hold else "printed against")
+                   + f" phase 3's bound {bnd:.3f}")
         if not hold:
             continue
-        if abs(len(e_ref) - n_it) > 1:
-            raise AssertionError(f"{what}: {n_it} outer iterations, the "
-                                 f"{other} run {len(e_ref)}")
-        k = min(len(e_ref), n_it)
-        check_close(f"{what} energies vs the {other} run's (const {const})",
-                    energies[:k], e_ref[:k], 0, bnd)
+        if abs(len(e_ref) - len(e)) > 1:
+            raise AssertionError(f"{what}: {name} {len(e)} outer "
+                                 f"iterations, the {other} run {len(e_ref)}")
+        k = min(len(e_ref), len(e))
+        check_close(f"{what} {name} energies vs the {other} run's (const "
+                    f"{const})", e[:k], e_ref[:k], 0, bnd)
+    per = {name: 1e3 * r["seconds"] / len(r["energies"]) for name, r in (
+        ("persistent", first), ("repeat", again), ("per-step", steps),
+        ("plain", plain))}
     print(f"[{label}] {what}: {n_it} outer iterations, final energy "
-          f"{energies[-1]:.4f}, solve {dt:.4f} s ({1e3 * dt / n_it:.3f} "
-          f"ms/outer-iter; repeat {1e3 * runs[1][1] / n_it:.3f}; plain "
-          f"{1e3 * plain_dt / len(plain_e):.3f}), launches "
-          f"{ {k_: v for k_, v in launches.items() if v} }, CG iterations "
-          f"{cg_iters}, depth RMSE vs truth {rmse:.4f}; repeated solve "
-          f"bit-equal; " + "; ".join(held), flush=True)
-    print(f"[{label}] energy trace {energies}; plain {plain_e}", flush=True)
-    return {"iterations": n_it, "energies": energies, "seconds": dt,
-            "launches": launches, "rmse": rmse}
+          f"{energies[-1]:.4f}, solve {first['seconds']:.4f} s; ms/outer-"
+          "iter " + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+          + f"; launches {({k: v for k, v in first['launches'].items() if v})}"
+          f", per-step run {len(steps['energies'])} outer iterations, "
+          f"launches {({k: v for k, v in steps['launches'].items() if v})};"
+          f" CG iterations {first['cg_iters']}, depth RMSE vs truth "
+          f"{rmse:.4f}; repeated solve bit-equal; " + "; ".join(out),
+          flush=True)
+    print(f"[{label}] energy trace {energies}; per-step "
+          f"{steps['energies']}; plain {plain['energies']}", flush=True)
+    return {"iterations": n_it, "energies": energies,
+            "seconds": first["seconds"], "launches": first["launches"],
+            "rmse": rmse, "ms_per_outer_iteration": per,
+            "steps": {"iterations": len(steps["energies"]),
+                      "launches": steps["launches"]}}
 
 
 def cli_sharded(label, tmp, path, ref, const):
     """Phase 4j: ``--sharded 4`` through the CLI on ``path``, one shard per
     card present (at most 4): the metrics name the shard count, the
-    stopping rule and every depth CG through the shard kernels, energies
-    within phase 3's bound of the unsharded run ``ref``."""
+    stopping rule and every depth CG through the shard kernels (one card:
+    the persistent kernel, a one-device mesh; several: the per-step
+    kernels), energies within phase 3's bound of the unsharded run
+    ``ref``."""
     import torch
 
     shards = min(4, torch.cuda.device_count())
@@ -1878,7 +2049,8 @@ def cli_sharded(label, tmp, path, ref, const):
     if not stop_rule_held(energies, 5e-3, 10):
         raise AssertionError(f"--sharded 4: stopping rule violated: "
                              f"{energies}")
-    want = dict(expected_counts(0), **shard_counts(n_it, shards, 100, "std"))
+    want = dict(expected_counts(0), **shard_counts(
+        n_it, shards, 100, "std", "persistent" if shards == 1 else "steps"))
     if launches != want:
         raise AssertionError(f"--sharded 4: kernel runs {launches}, "
                              f"expected {want}")
@@ -1890,7 +2062,9 @@ def cli_sharded(label, tmp, path, ref, const):
                 ref[:k], 0, energy_bound(ref[0], const))
     dt = summary["total_seconds"]
     print(f"[{label}] CLI --sharded 4 on {shards} card(s): {n_it} outer "
-          f"iterations, solve {dt:.4f} s ({1e3 * dt / n_it:.3f} "
+          f"iterations, launches "
+          f"{({k: v for k, v in launches.items() if v})}, solve {dt:.4f} s "
+          f"({1e3 * dt / n_it:.3f} "
           f"ms/outer-iter), CLI wall {wall:.3f} s, energies within phase "
           f"3's bound of phase 4's (max gap "
           f"{max(abs(x - y) for x, y in zip(energies, ref)):.4f})",
@@ -2037,9 +2211,13 @@ def main() -> int:
     direct_vs_stencil(label, phase3)
     big = (1088, 1920, 2)
     big_lanes = {big: stacked_lanes(*big, range(2), dev)}
-    # 3g: the row-shard kernels on phase 3's grids and at 1088 x 1920.
-    shard = shard_vs_plain(label, {**phase3, **big_lanes},
-                           timed={big, (480, 640, 4)})
+    # 3g: the row-shard kernels on phase 3's grids, on 248 x 322 (rows of
+    # 322 floats: the 4-byte staging copies, halo rows included) and at
+    # 1088 x 1920.
+    narrow = (248, 322, 2)
+    shard = shard_vs_plain(
+        label, {**phase3, narrow: stacked_lanes(*narrow, range(2), dev),
+                **big_lanes}, timed={big, (480, 640, 4)})
     del shared, phase3
     big_entry = kernel_vs_plain(label, [big])[big]
     big_entry["name"] = "stencil_cg 1088x1920"
@@ -2182,11 +2360,13 @@ def main() -> int:
             run = sharded_solve(label, e_data, e_true, cfg, ref["energies"],
                                 e_const)
             shard_runs[shard_form(cfg)] = run
-        print(f"[{label}] 1088x1920 n=20 on 4 row shards: " + ", ".join(
-            f"{form} {1e3 * r['seconds'] / r['iterations']:.3f}"
-            for form, r in shard_runs.items())
-            + f" ms/outer-iter, against {per_it[0]:.3f} (standard) and "
-            f"{per_it[1]:.3f} (--jacobi) unsharded (4g)", flush=True)
+        print(f"[{label}] 1088x1920 n=20 on 4 row shards, ms/outer-iter "
+              "persistent / per-step route: " + ", ".join(
+                  f"{form} {r['ms_per_outer_iteration']['persistent']:.3f} / "
+                  f"{r['ms_per_outer_iteration']['per-step']:.3f}"
+                  for form, r in shard_runs.items())
+              + f", against {per_it[0]:.3f} (standard) and "
+              f"{per_it[1]:.3f} (--jacobi) unsharded (4g)", flush=True)
         os.remove(e)
 
     # 4i: bench.py's 4K configuration, built in memory, in turns.
@@ -2248,6 +2428,8 @@ def main() -> int:
                       + shard_entries(
                           shard, {f: r["launches"]
                                   for f, r in shard_runs.items()},
+                          {f: r["steps"]["launches"]
+                           for f, r in shard_runs.items()},
                           big, [(480, 640, 4)])}))
     print(label)
     print(json.dumps({"ok": True, "device": {

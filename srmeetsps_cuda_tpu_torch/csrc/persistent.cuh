@@ -1,6 +1,6 @@
 // The pieces of the persistent cooperative depth-CG kernels (stencil_cg.cu,
-// cgs_cg.cu): the tile plan, staging with cp.async, fixed-order sums and
-// the cooperative launch.
+// cgs_cg.cu, direct_cg.cu, shard_cg.cu): the tile plan, staging with
+// cp.async, fixed-order sums and the cooperative launch.
 //
 // The kernels are bound by instruction issue (PERF.md), so the two standard
 // blocks (256 x 4, 32 x 16) get the tile shape as template parameters
@@ -236,8 +236,10 @@ __device__ __forceinline__ void staged(const SH& s, F f) {
 // px) at sq(py, px); zeros outside the image), then ni <= NI planes of the
 // tile alone (plane k at buf + NH sp + k tile_px, row stride tw; pixels
 // outside the image left alone). src(k, lane) is plane k of the lane, k <
-// NH + ni, starting on 16 bytes where g.vec.
-template <int NH, int NI, class SH, class Src>
+// NH + ni, starting on 16 bytes where g.vec. With HALO = 1 the NH planes
+// are halo planes (row-0 pointers of (h + 2, w) planes, the row shards of
+// shard_cg.cu): rows -1 and h are read from them, not zero filled.
+template <int NH, int NI, int HALO = 0, class SH, class Src>
 __device__ void stage_tile(const SH& s, const Tile& tl, float* buf, int ni,
                            Src src) {
   const Geo& g = s.g;
@@ -258,7 +260,7 @@ __device__ void stage_tile(const SH& s, const Tile& tl, float* buf, int ni,
       for (int q = t0; q < (s.th() + 2) * nh; q += nt) {
         const int a = q / nh, c = 4 * (q - a * nh);
         const int i = tl.i0 - 1 + a, j = tl.j0 - HX + c;
-        const bool ok = i >= 0 && i < g.h && j >= 0 && j < g.w;
+        const bool ok = i >= -HALO && i < g.h + HALO && j >= 0 && j < g.w;
         const int o = ok ? i * g.w + j : 0;
 #pragma unroll
         for (int k = 0; k < NH; ++k)
@@ -282,7 +284,7 @@ __device__ void stage_tile(const SH& s, const Tile& tl, float* buf, int ni,
       const int i = tl.i0 - 1 + a;
       for (int b = HX - 1 + threadIdx.x; b < HX + tw + 1; b += s.bx()) {
         const int j = tl.j0 - HX + b;
-        const bool ok = i >= 0 && i < g.h && j >= 0 && j < g.w;
+        const bool ok = i >= -HALO && i < g.h + HALO && j >= 0 && j < g.w;
         const int o = ok ? i * g.w + j : 0;
 #pragma unroll
         for (int k = 0; k < NH; ++k)
@@ -308,7 +310,9 @@ __device__ __forceinline__ int lane_of(const Geo& g, int k) {
 // (stage_tile<NH, NI>; the two buffers `buf` floats apart); the next
 // tile's staging is in flight while one computes. The body must end in a
 // cta_sum (its __syncthreads frees the buffer for the copy after next).
-template <int NH, int NI, class SH, class Src, class Take, class Body>
+// HALO as stage_tile's.
+template <int NH, int NI, int HALO = 0, class SH, class Src, class Take,
+          class Body>
 __device__ void staged_tiles(const SH& s, float* stage, int buf, int ni,
                              Src src, Take take, Body body) {
   const Geo& g = s.g;
@@ -319,13 +323,13 @@ __device__ void staged_tiles(const SH& s, float* stage, int buf, int ni,
   };
   int k = next(0), par = 0;
   Tile cur = tile_of(g, k < n ? k : 0), nxt = cur;
-  if (k < n) stage_tile<NH, NI>(s, cur, stage, ni, src);
+  if (k < n) stage_tile<NH, NI, HALO>(s, cur, stage, ni, src);
   cp_async_commit();
   while (k < n) {
     const int kn = next(k + 1);
     if (kn < n) {
       nxt = tile_of(g, kn);
-      stage_tile<NH, NI>(s, nxt, stage + (par ^ 1) * buf, ni, src);
+      stage_tile<NH, NI, HALO>(s, nxt, stage + (par ^ 1) * buf, ni, src);
     }
     cp_async_commit();
     cp_async_wait<1>();

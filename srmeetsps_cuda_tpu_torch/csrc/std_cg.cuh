@@ -1,9 +1,9 @@
 // The standard-CG pieces shared by stencil_cg.cu, direct_cg.cu and
 // shard_cg.cu: the lane's device scalars and their updates (all three; the
-// persistent stencil_cg.cu and direct_cg.cu sum their per-tile partials in
-// every CTA and apply scal_* there, shard_cg.cu in its one-block sums),
+// persistent kernels sum their per-tile partials in every CTA and apply
+// scal_* there, shard_cg.cu's per-step route after its one-block sums),
 // and the row shard's sweep B (x += alpha p, r -= alpha w) with its
-// per-block partials (shard_cg.cu).
+// per-block partials (shard_cg.cu's per-step route).
 //
 // Each lane owns N_SCAL floats of scalars. r1 drives alpha and beta (rz
 // under Jacobi PCG); rr is <r, r> (the stop dot) and, after the loop, the

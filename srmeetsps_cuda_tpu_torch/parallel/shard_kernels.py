@@ -5,13 +5,15 @@ Port of the TPU kernels of ``srmeetsps_cuda_tpu/parallel/shard_pallas.py``
 (``_prologue_kernel`` :124, ``_cgs_sweep_kernel`` :249, ``_std_kernel_a``
 :375, ``_std_kernel_b`` :440, ``_std_kernel_b_jac`` :495) as the
 hand-written CUDA kernels of ``csrc/shard_cg.cu``. A :class:`Shard` holds
-one row band of ``h`` rows: its operands, its CG state and its scalars. Each
-step below has a plain PyTorch version (``*_plain``); the wrapper of the
-same name takes the plain version for a shard on the CPU and launches the
-kernel, on the shard's device and current stream, for a shard on a CUDA
-device (or raises). The row-shard loops of ``parallel/shard_cg.py`` call
-the steps in this order, exchanging halo rows and gathering the shards'
-sums in between:
+one row band of ``h`` rows: its operands, its CG state and its scalars
+(:func:`new_shards`; on a mesh whose shards all lie on one device, views
+into (N, ...) stacks, which the persistent kernels of
+``shard_cg.persistent`` read whole). Each step below has a plain PyTorch
+version (``*_plain``); the wrapper of the same name takes the plain version
+for a shard on the CPU and launches the kernel, on the shard's device and
+current stream, for a shard on a CUDA device (or raises). The row-shard
+loops of ``parallel/shard_cg.py`` call the steps in this order, exchanging
+halo rows and gathering the shards' sums in between:
 
 * :func:`prologue` (kernel 10): the 9 stencil planes C from the fields with
   their halo rows, ``x = x0``, ``r0 = rhs - M x0``, the sums ``<r0, r0>``
@@ -67,7 +69,7 @@ class Shard:
     planes: P11..P33, fwd_x, bwd_x, fwd_y, bwd_y, ktw), ``R0`` (4 halo
     planes: QB1, QB2, QB3, z0t), ``x0`` (a halo plane) and ``invd`` (a halo
     plane under Jacobi, else None) are the operands; the rest is the state
-    :func:`new_shard` allocates."""
+    :func:`new_shards` allocates."""
 
     device: torch.device
     h: int
@@ -82,6 +84,7 @@ class Shard:
     R0: torch.Tensor
     x0: torch.Tensor
     invd: Optional[torch.Tensor]
+    stack: Optional[SimpleNamespace] = None  # one device: the (N, ...) stacks
     x: torch.Tensor = None
     C: torch.Tensor = None
     r: torch.Tensor = None      # standard CG: r's halo plane
@@ -96,26 +99,48 @@ class Shard:
     st: dict = None             # the plain versions' scalars
 
 
-def new_shard(n_shards: int, **kw) -> Shard:
-    """A :class:`Shard` with its state allocated (zeros) on its device."""
-    sh = Shard(**kw)
-    h, w, dev = sh.h, sh.w, sh.device
-    bx, by = sh.block
+def _state(lead: tuple, n: int, h: int, w: int, nb: int, cgs: bool,
+           device) -> dict:
+    """The zeroed CG state of :class:`Shard`, each tensor with the leading
+    axes ``lead``."""
+    z = lambda *s, dtype=torch.float32: torch.zeros(  # noqa: E731
+        lead + s, dtype=dtype, device=device)
+    st = dict(x=z(h, w), C=z(N_STENCIL, h, w), part=z(PART_ROWS * nb),
+              own=z(2, dtype=F64), gathered=z(n, 2, dtype=F64),
+              scal=z(CGS_N_SCAL if cgs else N_SCAL))
+    if cgs:
+        st.update(rws=z(6, h + 2, w), pc=z(h, w))
+    else:
+        st.update(r=z(h + 2, w), p=z(2, h + 2, w), wv=z(h, w))
+    return st
+
+
+def new_shards(devices, *, F, R0, x0, invd, **kw) -> list:
+    """The :class:`Shard` of each of ``devices`` (one per shard), with its
+    state allocated (zeros); ``kw`` are the other fields up to ``cgs``.
+    The operands F, R0, x0 and invd (or None) are per-shard lists, or,
+    where every shard lies on one device, (N, ...) stacks: then each state
+    tensor is one stacked allocation too, every shard holds views into the
+    stacks, and ``stack`` holds the stacks."""
+    n = len(devices)
+    h, w, cgs = kw["h"], kw["w"], kw["cgs"]
+    bx, by = kw["block"]
     if bx <= 0 or by <= 0 or bx * by > MAX_BLOCK_THREADS:
         raise ValueError(f"thread block {bx}x{by} must hold 1..1024 threads")
-    z = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype, device=dev)  # noqa: E731
-    sh.x = z(h, w)
-    sh.C = z(N_STENCIL, h, w)
-    if sh.cgs:
-        sh.rws, sh.pc = z(6, h + 2, w), z(h, w)
-    else:
-        sh.r, sh.p, sh.wv = z(h + 2, w), z(2, h + 2, w), z(h, w)
     nb = (-(-w // bx)) * (-(-h // by))
-    sh.part = z(PART_ROWS * nb)
-    sh.own = z(2, dtype=F64)
-    sh.gathered = z(n_shards, 2, dtype=F64)
-    sh.scal = z(CGS_N_SCAL if sh.cgs else N_SCAL)
-    return sh
+    ops = dict(F=F, R0=R0, x0=x0, invd=invd)
+    pick = lambda d, i: {k: None if v is None else v[i]  # noqa: E731
+                         for k, v in d.items()}
+    if isinstance(F, torch.Tensor):
+        stack = SimpleNamespace(**ops, **_state((n,), n, h, w, nb, cgs,
+                                                devices[0]))
+        fields = [pick(vars(stack), i) for i in range(n)]
+    else:
+        stack = None
+        fields = [dict(pick(ops, i), **_state((), n, h, w, nb, cgs, dev))
+                  for i, dev in enumerate(devices)]
+    return [Shard(device=dev, stack=stack, **kw, **f)
+            for dev, f in zip(devices, fields)]
 
 
 def result(sh: Shard):
@@ -336,6 +361,10 @@ def _library():
         "srps_shard_cgs_step": [vp, ci] + [vp] * 6 + [ci, vp, vp]
                                + [ci, ci, ci, cf] + [ci] * 4 + [vp],
         "srps_shard_cgs_finish": [vp, ci, vp, cf, ci, vp],
+        "srps_shard_std": [vp] * 11 + [ci] * 4 + [cf, cf] + [ci] * 4
+                          + [ctypes.POINTER(ci), vp],
+        "srps_shard_cgs": [vp] * 9 + [ci] * 4 + [cf, cf] + [ci] * 3
+                          + [ctypes.POINTER(ci), vp],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)

@@ -86,11 +86,11 @@ def _jax_cg(variant, sf, cap):
     return np.asarray(x), int(k)
 
 
-def _port_cg(variant, sf, n, cap, plain=False, mesh=None):
+def _port_cg(variant, sf, n, cap, plain=False, mesh=None, route=None):
     _, p = _problem(sf)
     mesh = mesh or scg.make_mesh_1d(n, CPU)
     args = (p["x0"], p["op"], p["gm"], p["ktw"], p["z0t"])
-    kw = dict(sf=sf, lam=1.0, max_iter=cap, plain=plain)
+    kw = dict(sf=sf, lam=1.0, max_iter=cap, plain=plain, route=route)
     if variant == "jacobi":
         return scg.cg_sharded_jacobi(mesh, p["x0"], p["invd"], *args[1:],
                                      **kw)
@@ -414,14 +414,25 @@ def test_mesh_halo_exchange_and_all_reduce():
 
 
 def test_wrappers_take_plain_versions_on_cpu():
-    before = (sk.prologue.launches, sk.step_a.launches, sk.step_b.launches,
-              sk.cgs_step.launches)
+    """The per-step wrappers (``route="steps"``) and the persistent one
+    take their plain versions on CPU shards, counting no launch."""
+    counters = (sk.prologue, sk.step_a, sk.step_b, sk.cgs_step,
+                scg.persistent)
+    before = [c.launches for c in counters]
     for variant in ("std", "cgs", "jacobi"):
-        got = _port_cg(variant, 2, 2, 3)
+        got = _port_cg(variant, 2, 2, 3, route="steps")
         want = _port_cg(variant, 2, 2, 3, plain=True)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert before == (sk.prologue.launches, sk.step_a.launches,
-                      sk.step_b.launches, sk.cgs_step.launches)
+        _, p = _problem(2)
+        shards = scg._shards(
+            scg.make_mesh_1d(2, CPU), p["x0"], p["op"], p["gm"], p["ktw"],
+            p["z0t"], sf=2, lam=1.0, tol=1e-9, max_iter=3,
+            cgs=variant == "cgs", block=(256, 4),
+            invd=p["invd"] if variant == "jacobi" else None)
+        assert scg.persistent(shards) is None
+        got = scg._finish(shards, p["x0"])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert before == [c.launches for c in counters]
     meta = scg.make_mesh_1d(2, "meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         _port_cg("std", 2, 2, 3, mesh=meta)
@@ -433,11 +444,10 @@ def test_cuda_shards_match_plain(variant):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mesh = scg.make_mesh_1d(4, "cuda")
-    counter = {"std": sk.step_a, "cgs": sk.cgs_step, "jacobi": sk.step_b}
-    before = counter[variant].launches
+    before = scg.persistent.launches
     x, k, _ = _port_cg(variant, 2, 4, 12, mesh=mesh)
     torch.cuda.synchronize()
-    assert counter[variant].launches > before
+    assert scg.persistent.launches == before + 1
     px, pk, _ = _port_cg(variant, 2, 4, 12, mesh=mesh, plain=True)
     assert int(k) == int(pk)
     assert _rel_rms(x.cpu().numpy(), px.cpu().numpy()) < X_BOUND[12]

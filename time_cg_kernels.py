@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Milliseconds per CG iteration of the stencil, CGS and direct kernels on
-the card.
+"""Milliseconds per CG iteration of the stencil, CGS, direct and row-shard
+kernels on the card.
 
     python3 time_cg_kernels.py
 
@@ -13,8 +13,14 @@ at cap 100 (101 CG iterations; 3 at 1088 x 1920 and 4K), on the seeded
 depth operators of ``chip_smoke.stacked_lanes``, divided by 101. The direct
 CG runs in its three forms: r0 in the kernel with the energy tracked
 ("direct"), the same with its in-sweep Jacobi PCG ("direct jacobi") and
-given its residual ("direct host_r0"). Prints one JSON line with the
-card's name and power limit.
+given its residual ("direct host_r0"). The row-shard CG runs in its
+three forms on 4 shards of the card at 1088 x 1920 through
+``parallel.shard_cg.cg_sharded*`` on the checkout's default route (one
+persistent launch per solve where the checkout has the persistent shard
+kernels, else the host loop over the per-step kernels), divided by 101
+launched iterations whatever the Jacobi form stops at
+(``shard_cg_iterations``). Prints one JSON line with
+the card's name and power limit.
 """
 
 import json
@@ -36,7 +42,7 @@ def main() -> int:
     from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 
-    native.build_all(["stencil_cg", "cgs_cg", "direct_cg"])
+    native.build_all(["stencil_cg", "cgs_cg", "direct_cg", "shard_cg"])
     dev = torch.device("cuda")
     lanes2, stacked2 = cs.stacked_lanes(960, 1280, 2, range(4), dev)
     lanes4, _ = cs.stacked_lanes(960, 1280, 4, range(1), dev)
@@ -92,12 +98,39 @@ def main() -> int:
         out[f"cgs_cg {h}x{w} sf 2"] = cs.cuda_ms(
             lambda: cg.cgs_cg(*big[:5], sf=2, lam=1.0, max_iter=100),
             3) / 101
+        if h == 1088:
+            shard_cg_iterations = shard_times(big, out)
         if h == 2176:
             for form in forms:
                 out[f"{form} {h}x{w} sf 2"] = cs.cuda_ms(
                     direct(big[:6], big[6], 2, form), 3) / 101
-    print(json.dumps({"ms_per_cg_iteration": out, "card": cs.gpu_label()}))
+    print(json.dumps({"ms_per_cg_iteration": out,
+                      "shard_cg_iterations": shard_cg_iterations,
+                      "card": cs.gpu_label()}))
     return 0
+
+
+def shard_times(lane, out) -> dict:
+    """The row-shard CG on 4 shards of the card in its three forms on the
+    lane inputs (x0, op, gm, ktw, z0t, z0u, invd) of 1088 x 1920 sf 2:
+    ms per CG iteration into ``out``; returns each form's iterations."""
+    import chip_smoke as cs
+    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
+
+    mesh = scg.make_mesh_1d(4, "cuda")
+    x0, op, gm, ktw, z0t, _, invd = lane
+    kw = dict(sf=2, lam=1.0, max_iter=100)
+    runs = {"std": lambda: scg.cg_sharded(mesh, x0, op, gm, ktw, z0t, **kw),
+            "cgs": lambda: scg.cg_sharded_cgs(mesh, x0, op, gm, ktw, z0t,
+                                              **kw),
+            "jacobi": lambda: scg.cg_sharded_jacobi(mesh, x0, invd, op, gm,
+                                                    ktw, z0t, **kw)}
+    iters = {}
+    for form, fn in runs.items():
+        out[f"shard_cg {form} 4 shards 1088x1920 sf 2"] = cs.cuda_ms(
+            fn, 3) / 101
+        iters[form] = int(fn()[1])
+    return iters
 
 
 if __name__ == "__main__":
