@@ -123,6 +123,22 @@ falls back to the CPU or to a plain version):
    then ``--sharded 4`` through the CLI on the phase-4 file (one shard per
    card present: on one card the persistent kernel).
 
+4k. the options the JAX CLI has beyond the kernels, on the phase-4 file:
+   ``--image-dtype bfloat16`` through the CLI (every depth CG one stencil
+   launch, the phase-4 checks), the same bf16 problem with the stencil
+   CG's plain version on the card (at most one outer iteration more or
+   less, every energy within phase 3's bound), iteration 1's s and energy
+   within tests/test_config_modes.py::TestBF16Images's bound of the f32
+   run's, ms per outer iteration and peak memory of f32 and bf16 solves in
+   turns; ``--profile-dir`` (one trace, its CUDA kernel events the stencil
+   kernel's launches); ``--nan-check`` (a clean solve's outputs bit for bit
+   those without it; a NaN written into I inside the mask raises
+   FloatingPointError naming a phase); ``--dump-operators`` (the four
+   files equal what ``io/sparse_dump`` computes on the host for the same
+   mask); ``--show`` without a display (a warning, the same outputs); and
+   in 4i one bf16 ``"stencil"`` solve of the 4K configuration, its peak
+   memory printed beside the f32 run's.
+
 The line before the last but one is a JSON object with one entry per
 kernel and mode (its times per CG iteration at the main path's shapes, and
 the least time the card could take for the same work), the line before the
@@ -133,15 +149,19 @@ last the card's name and power limit; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import glob
 import io
 import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1621,10 +1641,11 @@ def lane_traces(recs):
     return list(lanes.values())
 
 
-def solo_trace(path, pad_to=None):
+def solo_trace(path, pad_to=None, cfg=None):
     """The single fused solve of ``path`` (zero-padded to ``pad_to``)
-    through the runtime API: its energy trace and the largest ``sum B^2``
-    constant of its depth operators."""
+    through the runtime API with ``cfg`` (the default ``SolverConfig``):
+    its energy trace and the largest ``sum B^2`` constant of its depth
+    operators."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.config import SolverConfig
@@ -1632,7 +1653,7 @@ def solo_trace(path, pad_to=None):
     from srmeetsps_cuda_tpu_torch.models import srps
     from srmeetsps_cuda_tpu_torch.runtime.solver import prepare
 
-    cfg = SolverConfig()
+    cfg = cfg or SolverConfig()
     prob, st = prepare(load_mat_dataset(path), cfg, torch.device("cuda"),
                        pad_to=pad_to)
     consts = []
@@ -1815,6 +1836,7 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True,
     h, w = data.mask.shape
     what = (f"cg_operator={cfg.cg_operator}"
             + (" jacobi" if cfg.jacobi_preconditioner else "")
+            + (" bf16" if cfg.image_dtype == "bfloat16" else "")
             + f" {h}x{w} n={data.I.shape[0]} sf={data.sf}"
             + (" (plain version)" if plain else ""))
     torch.cuda.synchronize()
@@ -1872,6 +1894,231 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True,
     print(f"[{label}] energy trace {energies}", flush=True)
     return {"iterations": n_it, "energies": energies, "seconds": dt,
             "launches": launches, "rmse": rmse, "peak_bytes": peak}
+
+
+def cli_outputs(tmp, path, extra=()):
+    """One ``cli.main`` solve of ``path`` with ``extra``, its states dumped
+    as npz: ``(energies, final state arrays, launch counts)``, the counts
+    set to 0 just before and read just after."""
+    import numpy as np
+
+    dump = tempfile.mkdtemp(dir=tmp)
+    reset_counts()
+    recs, _ = run_cli(["--dsloc", path, "--dump", "--dump-format", "npz",
+                       "--dump-dir", dump, *extra], tmp)
+    launches = read_counts()
+    with np.load(os.path.join(dump, "state_final.npz")) as f:
+        final = {k: f[k] for k in f.files}
+    shutil.rmtree(dump)
+    return [r["energy"] for r in recs if "iteration" in r], final, launches
+
+
+def same_outputs(what, got, want):
+    """``got`` and ``want`` (``cli_outputs``) bit for bit: the energies,
+    the final state and the kernel launches."""
+    import numpy as np
+
+    if (got[0] != want[0] or got[2] != want[2]
+            or any(not np.array_equal(got[1][k], want[1][k])
+                   for k in want[1])):
+        raise AssertionError(f"{what}: outputs differ from the same solve "
+                             f"without it: energies {got[0]} vs {want[0]}, "
+                             f"launches {got[2]} vs {want[2]}")
+
+
+def stencil_kernel_events(prof_dir) -> list:
+    """The CUDA kernel events of the one torch.profiler trace in
+    ``prof_dir`` that name the stencil CG kernel (``cg_kernel<...>`` of
+    csrc/stencil_cg.cu)."""
+    import re
+
+    files = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--profile-dir: {len(files)} trace files in "
+                             f"{prof_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("--profile-dir: the trace holds no CUDA kernel "
+                             "event")
+    return [e for e in kernels
+            if re.search(r"(?<![A-Za-z_])cg_kernel", e.get("name", ""))]
+
+
+def phase_4k(label, tmp, path, data, z_true, main, const):
+    """Phase 4k on the phase-4 file ``path`` (``data``; ``main`` its phase-4
+    run, ``const`` the constant E of its solve): bf16 images, then
+    ``--profile-dir``, ``--nan-check``, ``--dump-operators`` and ``--show``.
+    Returns the figures of the kernels line's ``bf16`` entry."""
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.config import RuntimeConfig, SolverConfig
+    from srmeetsps_cuda_tpu_torch.io import sparse_dump
+    from srmeetsps_cuda_tpu_torch.models import srps
+    from srmeetsps_cuda_tpu_torch.ops.gradients import GradientMasks
+    from srmeetsps_cuda_tpu_torch.ops.grid import lr_mask
+    from srmeetsps_cuda_tpu_torch.runtime.solver import prepare, solve
+
+    dev = torch.device("cuda")
+    sf = int(data.sf)
+    cfgs = {dt: SolverConfig(image_dtype=dt)
+            for dt in ("float32", "bfloat16")}
+    # bf16 through the CLI, then the runtime API's solve of the same
+    # problem, and that with the stencil CG's plain version on the card.
+    bf = main_path(label, tmp, path, data, z_true,
+                   cli_extra=("--image-dtype", "bfloat16"))
+    trace16, const16 = solo_trace(path, cfg=cfgs["bfloat16"])
+    if trace16 != bf["energies"]:
+        raise AssertionError("bf16: the runtime API's solve differs from the "
+                             "CLI's")
+    plain = api_solve(label, data, z_true, cfgs["bfloat16"], bf["energies"],
+                      const16, plain=True)
+    # Iteration 1: s against the f32 run at TestBF16Images's bound. The
+    # energy's constant holds sum SI2, the bf16-rounded products I * I (JAX
+    # srps.py:145-146), whose rounding lifts it by ~1e-5 of sum I^2, and the
+    # bf16 images carry their own rounding noise: on this noiseless render
+    # both exceed that bound (tests/test_torch_bf16.py::
+    # test_bf16_energy_gap_is_the_reference_si2). So the energy, SI2's
+    # rounding taken out, is held at phase 3's bound to the f32 iteration on
+    # the same images rounded to bf16, and its gaps to the f32 run printed.
+    rounded = dataclasses.replace(data, I=torch.from_numpy(
+        np.ascontiguousarray(data.I, np.float32)).bfloat16().float().numpy())
+    first = {}
+    for name, d, cfg in (("float32", data, cfgs["float32"]),
+                         ("bfloat16", data, cfgs["bfloat16"]),
+                         ("rounded", rounded, cfgs["float32"])):
+        prob, st = prepare(d, cfg, dev)
+        first[name] = srps.srps_iteration(st, prob, sf, cfg)
+        if name == "bfloat16":
+            si2_bias = cfg.lam * float(prob.SI2.double().sum()
+                                       - prob.I.double().square().sum())
+        del prob, st
+    del rounded
+    s16, s32 = (first[k].s.cpu().numpy() for k in ("bfloat16", "float32"))
+    e16, e32, e_rnd = (float(first[k].energy)
+                       for k in ("bfloat16", "float32", "rounded"))
+    check_close("bf16 iteration 1 s vs f32", s16, s32, 3e-2, 3e-3)
+    check_close("bf16 iteration 1 energy, SI2's rounding taken out, vs f32 "
+                "on the bf16-rounded images", e16 - si2_bias, e_rnd, 0,
+                energy_bound(e_rnd, const16))
+    if e16 != bf["energies"][0] or e32 != main["energies"][0]:
+        raise AssertionError("iteration 1 differs from the CLI's")
+    del first
+    # f32 and bf16 in turns: ms per outer iteration and peak memory.
+    turns = {"float32": [], "bfloat16": []}
+    refs = {"float32": (main["energies"], const),
+            "bfloat16": (bf["energies"], const16)}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        turns[dt].append(api_solve(label, data, z_true, cfgs[dt], *refs[dt]))
+    ms = {dt: [1e3 * r["seconds"] / r["iterations"] for r in runs]
+          for dt, runs in turns.items()}
+    peak = {dt: max(r["peak_bytes"] for r in runs)
+            for dt, runs in turns.items()}
+    h, w = data.mask.shape
+    print(f"[{label}] bf16 vs f32 {h}x{w} n={data.I.shape[0]} sf={sf}: "
+          f"{bf['iterations']} vs "
+          f"{main['iterations']} outer iterations (plain CG bf16 "
+          f"{plain['iterations']}); iteration 1 max |ds| "
+          f"{float(np.abs(s16 - s32).max()):.3e}, energy {e16} vs f32 {e32} "
+          f"({(e16 - e32) / e32:+.4f}): SI2's bf16 products "
+          f"{si2_bias:+.3f}, the rest {e16 - si2_bias - e_rnd:+.4f} from f32 "
+          f"on the bf16-rounded images ({e_rnd}, "
+          f"{(e_rnd - e32) / e32:+.4f} from f32); "
+          "ms/outer-iter in turns f32 "
+          + " / ".join(f"{t:.3f}" for t in ms["float32"]) + ", bf16 "
+          + " / ".join(f"{t:.3f}" for t in ms["bfloat16"])
+          + f"; peak allocated f32 {peak['float32'] / 2**30:.3f} GiB, bf16 "
+          f"{peak['bfloat16'] / 2**30:.3f} GiB", flush=True)
+
+    plain_out = cli_outputs(tmp, path)
+    if plain_out[0] != main["energies"]:
+        raise AssertionError("a repeated CLI solve differs from phase 4's")
+    # --profile-dir: a trace whose CUDA kernel events are the stencil
+    # kernel's launches.
+    prof = tempfile.mkdtemp(dir=tmp)
+    profiled = cli_outputs(tmp, path, ("--profile-dir", prof))
+    same_outputs("--profile-dir", profiled, plain_out)
+    named = stencil_kernel_events(prof)
+    n_launch = profiled[2]["stencil_cg"]
+    if len(named) != n_launch:
+        raise AssertionError(f"--profile-dir: {len(named)} stencil kernel "
+                             f"events for {n_launch} launches")
+    kernel_ms = sum(e.get("dur", 0) for e in named) / 1e3
+    print(f"[{label}] --profile-dir: {len(named)} CUDA events of "
+          f"{named[0]['name']!r} for {n_launch} stencil_cg launches, "
+          f"{kernel_ms:.3f} ms of kernel time", flush=True)
+    shutil.rmtree(prof)
+    # --nan-check: bit for bit on a clean solve; a NaN inside the mask
+    # raises, naming its phase.
+    same_outputs("--nan-check", cli_outputs(tmp, path, ("--nan-check",)),
+                 plain_out)
+    I = data.I.copy()
+    r, c = np.argwhere(data.mask != 0)[len(np.argwhere(data.mask != 0)) // 2]
+    I[0, 0, r, c] = np.nan
+    try:
+        solve(dataclasses.replace(data, I=I), cfgs["float32"],
+              RuntimeConfig(fused_outer_loop=True, nan_check=True),
+              device=dev, verbose=False)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("--nan-check: a NaN in I inside the mask did "
+                             "not raise")
+    del I
+    print(f"[{label}] --nan-check: a clean solve bit for bit the unchecked "
+          f"one; a NaN in I at ({r}, {c}) raised FloatingPointError: "
+          f"{raised}", flush=True)
+    # --dump-operators: the four files against the host's triplets.
+    ops_dir = tempfile.mkdtemp(dir=tmp)
+    run_cli(["--dsloc", path, "--dump-operators", "--dump-format", "mat5",
+             "--dump-dir", ops_dir], tmp)
+    mask = (torch.as_tensor(np.asarray(data.mask)) != 0).float()
+    dx, dy, npix = sparse_dump.gradient_coo(GradientMasks.from_mask(mask),
+                                            mask)
+    h, w = mask.shape
+    want = {"Dx": dx + (npix, npix), "Dy": dy + (npix, npix),
+            "D": sparse_dump.downsample_coo(h, w, sf),
+            "KT": sparse_dump.kt_coo(mask, lr_mask(mask, sf), sf)}
+    shapes = {}
+    for name, (ii, jj, kk, rows, cols) in want.items():
+        got = sio.loadmat(os.path.join(ops_dir, f"{name}.mat"))
+        dims = (int(got["rows"].ravel()[0]), int(got["cols"].ravel()[0]))
+        if dims != (rows, cols) or got["ii"].size != ii.size or not all(
+                np.array_equal(got[k].ravel(), v)
+                for k, v in (("ii", ii), ("jj", jj), ("kk", kk))):
+            raise AssertionError(f"--dump-operators {name}: {dims}, nnz "
+                                 f"{got['ii'].size}; the host's "
+                                 f"{(rows, cols)}, nnz {ii.size}")
+        shapes[name] = f"{rows}x{cols} nnz {ii.size}"
+    shutil.rmtree(ops_dir)
+    print(f"[{label}] --dump-operators: {shapes}, each equal to "
+          "io/sparse_dump's triplets of the same mask", flush=True)
+    # --show without a display: a warning and the same outputs.
+    hidden = {k: os.environ.pop(k) for k in ("DISPLAY", "WAYLAND_DISPLAY")
+              if k in os.environ}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            shown = cli_outputs(tmp, path, ("--show",))
+    finally:
+        os.environ.update(hidden)
+    said = [str(m.message) for m in caught
+            if "--show disabled" in str(m.message)]
+    if not said:
+        raise AssertionError(f"--show: no warning, {caught}")
+    same_outputs("--show", shown, plain_out)
+    print(f"[{label}] --show without a display: warned {said[0]!r}, the "
+          "same outputs as the solve without it", flush=True)
+    return {"launches": bf["launches"]["stencil_cg"],
+            "outer_iterations": bf["iterations"],
+            "iteration_1_energy": {"float32": e32, "bfloat16": e16,
+                                   "si2_bias": si2_bias,
+                                   "float32_rounded_images": e_rnd},
+            "plain_outer_iterations": plain["iterations"],
+            "ms_per_outer_iteration": ms, "peak_allocated_bytes": peak}
 
 
 def shard_form(cfg) -> str:
@@ -2332,6 +2579,8 @@ def main() -> int:
 
         # 4j (CLI): --sharded 4 on the phase-4 file.
         cli_sharded(label, tmp, a, main["energies"], const)
+        # 4k: bf16 images and the CLI's runtime options on the same file.
+        entry["bf16"] = phase_4k(label, tmp, a, a_data, a_true, main, const)
 
         # 4g: BASELINE.md configuration 5, 1088 x 1920, n = 20, c = 3.
         for path in (a, b, c):
@@ -2421,6 +2670,21 @@ def main() -> int:
               f"{op} {r['iterations']} outer iterations"
               for op, r in plain4k.items()), flush=True)
     direct_launches["direct"]["4k"] = dict(k4_direct, stencil=k4_stencil)
+    # 4k at 4K: one bf16 "stencil" solve, its peak beside the f32 runs'.
+    k4_bf16 = api_solve(label, data4k, true4k,
+                        SolverConfig(image_dtype="bfloat16"),
+                        runs4k["stencil"][0]["energies"], const4k,
+                        hold=False)
+    entry["bf16"]["4k"] = {
+        "outer_iterations": k4_bf16["iterations"],
+        "ms_per_outer_iteration": 1e3 * k4_bf16["seconds"]
+        / k4_bf16["iterations"],
+        "peak_allocated_bytes": k4_bf16["peak_bytes"],
+        "f32_peak_allocated_bytes": k4_stencil["peak_allocated_bytes"]}
+    print(f"[{label}] 4K bf16 \"stencil\": {k4_bf16['iterations']} outer "
+          f"iterations, peak allocated {k4_bf16['peak_bytes'] / 2**30:.3f} "
+          f"GiB against f32 "
+          f"{k4_stencil['peak_allocated_bytes'] / 2**30:.3f} GiB", flush=True)
 
     print(json.dumps({"kernels": [entry, cgs_entry, scaled_entry, pcg_entry,
                                   big_entry]

@@ -9,11 +9,19 @@ surface (Main.cpp:9-44):
                              (Preferences 256 x 4, at most 1024 threads)
 
 plus the solver constants, ``--fast``, ``--fused``/``--stepwise``,
-``--cg-variant``, ``--batch-mode``, ``--serve``, ``--sharded``, dumps,
-``--viz``, ``--metrics-jsonl`` and ``--resume-from``. Without ``--cpu`` a
-CUDA device is required; ``--cpu`` runs the plain PyTorch versions of the
-kernels on the CPU. Options of the JAX CLI that are not ported yet exit
-with a message that names ROADMAP.md.
+``--cg-variant``, ``--image-dtype``, ``--batch-mode``, ``--serve``,
+``--sharded``, dumps, ``--dump-operators``, ``--viz``, ``--show``,
+``--metrics-jsonl``, ``--resume-from``, ``--nan-check`` and
+``--profile-dir``: every option of the JAX CLI but ``--pallas`` /
+``--no-pallas`` (on a CUDA device the kernels always run). Without
+``--cpu`` a CUDA device is required; ``--cpu`` runs the plain PyTorch
+versions of the kernels on the CPU.
+
+Each path honours the options the JAX CLI's does: the single solve all;
+a multi-object solve (comma ``--dsloc``) the solver options, dumps,
+``--viz``, ``--metrics-jsonl`` and ``--profile-dir``; ``--sharded`` the
+solver options, dumps, ``--viz`` and ``--metrics-jsonl``; ``--serve`` the
+solver options and ``--batch-mode``. Elsewhere an option has no effect.
 """
 
 from __future__ import annotations
@@ -96,18 +104,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "CUDA devices present; with --cpu, N CPU shards); "
                         "the image height and its LR height must divide "
                         "by N")
-    # Surface of the JAX CLI that the port does not implement yet.
-    p.add_argument("--show", action="store_true", help="not yet ported")
+    p.add_argument("--show", action="store_true",
+                   help="live preview windows per outer iteration (the "
+                        "reference's cv::imshow: Normals-Initial, Normals-"
+                        "Current-Iteration, Albedo); needs a GUI cv2 and a "
+                        "display, else it disables itself with a warning")
     p.add_argument("--dump-operators", action="store_true",
-                   help="not yet ported")
+                   help="dump D/Dx/Dy/KT as ii/jj/kk triplet MAT files into "
+                        "--dump-dir (MAT v5 with --dump-format mat5, else "
+                        "MAT 7.3)")
     p.add_argument("--image-dtype", choices=["float32", "bfloat16"],
-                   default="float32", help="bfloat16 is not yet ported")
+                   default="float32",
+                   help="image stack dtype; bfloat16 halves the bytes of "
+                        "the per-iteration passes over the images, which "
+                        "still accumulate in float32")
+    p.add_argument("--nan-check", action="store_true",
+                   help="check after each phase of every outer iteration "
+                        "that its output is finite; raise FloatingPointError "
+                        "naming the first phase that is not")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the solve (CUDA "
+                        "kernels included on the card) into this directory")
     return p
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{PROG}: {what} is not yet ported to the PyTorch "
-                      "package; see ROADMAP.md")
 
 
 def _loader(dstype: str):
@@ -126,14 +144,6 @@ def main(argv=None) -> int:
     if not args.dsloc and not args.serve:
         parser.print_help()
         return 0
-    unported = [
-        ("--show", args.show),
-        ("--dump-operators", args.dump_operators),
-        ("--image-dtype bfloat16", args.image_dtype != "float32"),
-    ]
-    for what, asked in unported:
-        if asked:
-            raise _not_ported(what)
     if not (args.blockx > 0 and args.blocky > 0
             and args.blockx * args.blocky <= 1024):
         raise SystemExit(f"{PROG}: --blockx x --blocky must be 1..1024 "
@@ -158,14 +168,19 @@ def main(argv=None) -> int:
         lam=args.lam,
         jacobi_preconditioner=args.jacobi,
         cg_variant=args.cg_variant,
+        image_dtype=args.image_dtype,
     )
     rt = RuntimeConfig(
         dump_iterations=args.dump,
         dump_dir=args.dump_dir,
         dump_format=args.dump_format,
         save_visualizations=args.viz,
+        live_view=args.show,
         metrics_jsonl=args.metrics_jsonl,
         resume_from=args.resume_from,
+        dump_operators=args.dump_operators,
+        nan_check=args.nan_check,
+        profile_dir=args.profile_dir,
         fused_outer_loop=args.fused,
         batch_mode=args.batch_mode,
     )
@@ -199,21 +214,24 @@ def _common_grid(datas, sf: int):
     return H + (-H) % sf, W + (-W) % sf
 
 
-def _solve_lanes(datas, cfg, device, mode, block):
+def _solve_lanes(datas, cfg, device, mode, block, profile_dir=None):
     """The multi-object solve of ``datas`` in ``mode``, timed from the
-    first launch to the device's end: ``(probs, finals, traces, seconds,
+    first launch to the device's end, under a profiler trace into
+    ``profile_dir`` if one is given: ``(probs, finals, traces, seconds,
     pad_to)``."""
     from .parallel import batched
-    from .runtime.solver import Timer, prepare
+    from .runtime.solver import Timer, prepare, profiling
 
     sf = int(datas[0].sf)
     pad_to = _common_grid(datas, sf)
     pairs = [prepare(d, cfg, device, pad_to=pad_to) for d in datas]
     probs = [p for p, _ in pairs]
-    t = Timer(device).start()
-    finals, traces = batched.solve_batch([s for _, s in pairs], probs, sf,
-                                         cfg, mode=mode, block=block)
-    return probs, finals, traces, t.end(), pad_to
+    with profiling(profile_dir, device):
+        t = Timer(device).start()
+        finals, traces = batched.solve_batch([s for _, s in pairs], probs,
+                                             sf, cfg, mode=mode, block=block)
+        dt = t.end()
+    return probs, finals, traces, dt, pad_to
 
 
 def _trace_iterations(trace) -> int:
@@ -294,7 +312,8 @@ def _run_batched(datas, locs, cfg, rt, device, prefs):
     shapes = [tuple(d.mask.shape) for d in datas]
     mode = batched.resolve_batch_mode(rt.batch_mode)
     probs, finals, traces, dt, pad_to = _solve_lanes(
-        datas, cfg, device, mode, (prefs.block_x, prefs.block_y))
+        datas, cfg, device, mode, (prefs.block_x, prefs.block_y),
+        rt.profile_dir)
     if pad_to is not None:
         print(f"mixed geometry {sorted(set(shapes))}: padding all lanes to "
               f"{pad_to}")

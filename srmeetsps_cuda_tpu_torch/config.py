@@ -16,7 +16,10 @@ the default is the stencil CG with the energy tracked inside it, the JAX
 default path; ``"direct"`` and ``"direct_host_r0"`` run the direct
 mask-gated matvec CG of the JAX package's streaming and two-call routes.
 VMEM residency itself has no counterpart (the H100 has no residency gate),
-and ``use_pallas`` none either. The bf16 image stack is not ported yet.
+and ``use_pallas`` none either (nor the CLI's ``--pallas``/``--no-pallas``).
+``image_dtype="bfloat16"`` stores the masked image stack in bf16; every
+contraction over it upcasts one pixel chunk at a time and accumulates in
+float32, and the lighting ``s`` stays float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +45,10 @@ class SolverConfig:
     # Jacobi-preconditioned depth CG (stencil_cg with invd = 1 / diag M):
     # scaled at sf <= 2, in-sweep PCG at sf = 4, on every path and variant.
     jacobi_preconditioner: bool = False
+    # Storage dtype of the masked image stack, "float32" or "bfloat16":
+    # bf16 halves the bytes of the two per-iteration passes over I (the
+    # lighting ATb and the s-moments J), which still accumulate in f32.
+    image_dtype: str = "float32"
     # "pipe" = standard CG (csrc/stencil_cg.cu); "cgs" = Chronopoulos-Gear
     # CG, one sweep and one reduction per iteration (csrc/cgs_cg.cu).
     cg_variant: str = "pipe"
@@ -77,8 +84,20 @@ class RuntimeConfig:
     dump_dir: str = "."
     dump_format: str = "mat"  # "mat" (MAT 7.3 HDF5) | "mat5" | "npz"
     save_visualizations: bool = False
+    # Live cv2 windows per outer iteration (SRPS.cu:319-327); without a
+    # display or a GUI cv2 the viewer disables itself (io/liveview.py).
+    live_view: bool = False
     metrics_jsonl: Optional[str] = None
     resume_from: Optional[str] = None
+    # D/Dx/Dy/KT as ii/jj/kk triplet MAT files in dump_dir
+    # (io/sparse_dump.py; the reference's sparse golden channel).
+    dump_operators: bool = False
+    # Check after each phase of every outer iteration that its output is
+    # finite, and raise FloatingPointError naming the first phase that is
+    # not (one host read per phase).
+    nan_check: bool = False
+    # Write a torch.profiler trace of the solve into this directory.
+    profile_dir: Optional[str] = None
     # The whole outer loop without per-phase host timing: one host read
     # (the stop test) per outer iteration.
     fused_outer_loop: bool = False

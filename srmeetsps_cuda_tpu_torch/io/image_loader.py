@@ -8,7 +8,8 @@ Utilities.cpp:349-395), the same contract as
   K.txt        3 CSV rows of the intrinsics K, then one line "sf,min_z,max_z"
 
 Files are sorted lexicographically (``cv::glob`` order). Decoding uses
-Pillow, imported at first use.
+the native libpng decoder (``io/native_loader.py``) when
+``native/libpngio.so`` is built, else Pillow, imported at first use.
 """
 
 from __future__ import annotations
@@ -32,6 +33,13 @@ class ProblemData:
 
 
 def _decode_png(path: str) -> np.ndarray:
+    """The PNG at ``path``: the native decoder if built, else Pillow (JAX
+    image_loader.py:44-55)."""
+    from . import native_loader
+
+    arr = native_loader.decode_png(path)
+    if arr is not None:
+        return arr
     from PIL import Image
 
     with Image.open(path) as im:

@@ -29,8 +29,11 @@ _MAT73_CLASS = {
 
 
 def to_host(a) -> np.ndarray:
-    """A tensor on any device, or an array-like, as a numpy array."""
+    """A tensor on any device, or an array-like, as a numpy array (a
+    bfloat16 tensor as float32, which holds it exactly)."""
     if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            a = a.float()
         return a.detach().cpu().numpy()
     return np.asarray(a)
 
@@ -57,6 +60,21 @@ def save_mat73(path: str, variables: dict):
         f.write(header.ljust(512, b"\x00"))
 
 
+def load_mat_any(path: str) -> dict:
+    """A MAT file of either container (v5 through scipy, 7.3 through h5py)
+    as MATLAB-shaped (column-major-equivalent) arrays."""
+    import scipy.io as sio
+
+    try:
+        m = sio.loadmat(path)
+        return {k: v for k, v in m.items() if not k.startswith("__")}
+    except NotImplementedError:
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            return {k: np.asarray(f[k]).T for k in f.keys()}
+
+
 def save_vector_mat(path: str, data: np.ndarray, version: str = "7.3"):
     """One packed vector under the variable name ``x``."""
     x = np.asarray(data).reshape(-1, 1)
@@ -66,6 +84,27 @@ def save_vector_mat(path: str, data: np.ndarray, version: str = "7.3"):
     import scipy.io as sio
 
     sio.savemat(path, {"x": x})
+
+
+def save_sparse_mat(path: str, ii, jj, kk, rows: int, cols: int,
+                    version: str = "7.3"):
+    """COO triplets and dims in the reference's write_MAT_sparse layout
+    (Utilities.cpp:85-122): int32 ``ii``/``jj`` (0-based), float32 ``kk``,
+    scalar ``rows``/``cols``; MATLAB reads ``sparse(ii+1, jj+1, kk, rows,
+    cols)``."""
+    variables = {
+        "ii": np.asarray(ii, np.int32).reshape(-1, 1),
+        "jj": np.asarray(jj, np.int32).reshape(-1, 1),
+        "kk": np.asarray(kk, np.float32).reshape(-1, 1),
+        "rows": np.int32(rows),
+        "cols": np.int32(cols),
+    }
+    if version == "7.3":
+        save_mat73(path, variables)
+        return
+    import scipy.io as sio
+
+    sio.savemat(path, variables)
 
 
 def _mat_version(fmt: str) -> str:

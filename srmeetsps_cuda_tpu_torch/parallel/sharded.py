@@ -79,16 +79,20 @@ def solve_fused_sharded(state, prob, sf: int, cfg: SolverConfig,
     return st, trace
 
 
-def dryrun(n_shards: int, devices="cpu") -> list:
+def dryrun(n_shards: int, devices=None) -> list:
     """Solve a tiny seeded problem on ``n_shards`` row shards (on
-    ``devices``, see ``make_mesh_1d``) with the standard CG, the CGS and
-    Jacobi, and hold each to the unsharded solve of the same recurrence:
-    equal outer iterations and energies within rtol 1e-3. The unsharded
-    Jacobi PCG is the direct operator's (the stencil CG takes the scaled
-    form at sf <= 2). Returns the per-variant traces."""
+    ``devices``, see ``make_mesh_1d``; by default every shard on the CUDA
+    device, which ``device.resolve_device`` requires, or ``"cpu"``) with the
+    standard CG, the CGS and Jacobi, and hold each to the unsharded solve of
+    the same recurrence: equal outer iterations and energies within rtol
+    1e-3. The unsharded Jacobi PCG is the direct operator's (the stencil CG
+    takes the scaled form at sf <= 2). Returns the per-variant traces."""
+    from ..device import resolve_device
     from ..io.synthetic import lambertian_dataset
     from ..runtime.solver import prepare
 
+    if devices is None:
+        devices = resolve_device()
     mesh = make_mesh_1d(n_shards, devices)
     sf = 2
     h = 8 * sf * n_shards

@@ -8,10 +8,16 @@ Port of ``srmeetsps_cuda_tpu/runtime/solver.py`` (the control flow of
 * **fused**: no per-phase synchronisation, one host read per outer
   iteration (the stop test); the energy trace is reported at the end. The
   CUDA default.
+
+Both run the run-level options of ``RuntimeConfig``: dumps, checkpoints,
+visualizations, the live view, the operator dump, the finiteness check of
+each phase (``nan_check``) and a ``torch.profiler`` trace
+(``profile_dir``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -72,7 +78,8 @@ def prepare(data, cfg: SolverConfig, device: torch.device,
         mask, I, z_init = (pad_to_multiple(a, H, W)[0]
                            for a in (mask, I, z_init))
         zs = pad_to_multiple(zs, H // sf, W // sf)[0]
-    prob = srps.build_problem(I, mask, data.K, sf, zs, device)
+    prob = srps.build_problem(I, mask, data.K, sf, zs, device,
+                              image_dtype=cfg.image_dtype)
     state = srps.init_state(prob, z_init)
     if return_zs:
         return prob, state, zs
@@ -90,10 +97,35 @@ def state_from_checkpoint(ck: dict, device: torch.device) -> srps.SRPSState:
         cg_iters=torch.zeros((), dtype=torch.int32, device=device))
 
 
+@contextlib.contextmanager
+def profiling(profile_dir, device: torch.device):
+    """A ``torch.profiler`` trace of the block, CUDA activity included on
+    a CUDA device, written as a Chrome trace (``*.pt.trace.json``) into
+    ``profile_dir`` (JAX runtime/solver.py:148-160 takes a
+    ``jax.profiler`` trace); nothing when ``profile_dir`` is None."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
+
+
 def solve(data, cfg: SolverConfig = SolverConfig(),
           rt: RuntimeConfig = RuntimeConfig(), *, device: torch.device,
           prefs: Preferences = Preferences(), verbose: bool = True):
     """End-to-end solve on ``device``. Returns (final_state, metrics)."""
+    with profiling(rt.profile_dir, device):
+        return _solve(data, cfg, rt, device, prefs, verbose)
+
+
+def _solve(data, cfg, rt, device, prefs, verbose):
     prob, state, zs = prepare(data, cfg, device, return_zs=True)
     sf = int(data.sf)
     block = (prefs.block_x, prefs.block_y)
@@ -101,6 +133,10 @@ def solve(data, cfg: SolverConfig = SolverConfig(),
     if rt.dump_iterations and rt.dump_format in ("mat", "mat5"):
         writers.dump_preprocessing(rt.dump_dir, zs, state.z, prob.mask,
                                    fmt=rt.dump_format)
+    if rt.dump_operators:
+        from ..io.sparse_dump import dump_operators
+
+        dump_operators(rt.dump_dir, prob, sf, fmt=rt.dump_format)
     if rt.resume_from:
         state = state_from_checkpoint(writers.load_checkpoint(rt.resume_from),
                                       device)
@@ -108,18 +144,28 @@ def solve(data, cfg: SolverConfig = SolverConfig(),
         # The initial normals, shown beside every iteration by the
         # reference ("Normals-Initial", SRPS.cu:270,321).
         writers.save_visualizations(rt.dump_dir, state, prob.mask, tag="_init")
+    viewer = None
+    if rt.live_view:
+        from ..io.liveview import LiveView
 
-    if rt.fused_outer_loop:
-        final, metrics = _solve_fused(state, prob, sf, cfg, rt, block, verbose)
-    else:
-        final, metrics = _solve_stepwise(state, prob, sf, cfg, rt, block,
-                                         verbose)
+        viewer = LiveView()
+        viewer.set_initial(state, prob.mask)
+    check = srps.check_finite if rt.nan_check else None
+
+    loop = _solve_fused if rt.fused_outer_loop else _solve_stepwise
+    final, metrics = loop(state, prob, sf, cfg, rt, block, verbose, viewer,
+                          check)
     _write_outputs(final, prob, rt, metrics)
+    if viewer is not None:
+        viewer.finish()
     return final, metrics
 
 
-def _solve_fused(state, prob, sf, cfg, rt, block, verbose):
-    keep_states = rt.dump_iterations or rt.save_visualizations
+def _solve_fused(state, prob, sf, cfg, rt, block, verbose, viewer, check):
+    # A viewer that has disabled itself keeps no iterates (the JAX package
+    # takes its trace-carrying solve for any viewer, runtime/solver.py:209).
+    keep_states = (rt.dump_iterations or rt.save_visualizations
+                   or (viewer is not None and viewer.enabled))
     records, states = [], []
 
     def record(st):
@@ -130,7 +176,7 @@ def _solve_fused(state, prob, sf, cfg, rt, block, verbose):
 
     t = Timer(prob.mask.device).start()
     final, _ = srps.solve_fused(state, prob, sf, cfg, block,
-                                on_iteration=record)
+                                on_iteration=record, check=check)
     dt = t.end()
     metrics = [{"iteration": k, "energy": float(e), "cg_iterations": int(c)}
                for k, e, c in records]
@@ -140,11 +186,12 @@ def _solve_fused(state, prob, sf, cfg, rt, block, verbose):
         print(f"fused solve: {n_it} iterations in {dt:.3f}s, "
               f"final energy {float(final.energy):.3f}")
     for st in states:
-        _dump_iteration(st, prob, rt)
+        _iteration_outputs(st, prob, rt, viewer)
     return final, metrics
 
 
-def _dump_iteration(st, prob, rt: RuntimeConfig):
+def _iteration_outputs(st, prob, rt: RuntimeConfig, viewer):
+    """The per-iteration dump, checkpoint, PNGs and live windows."""
     if rt.dump_iterations:
         # Untagged names each iteration (the reference overwrites) and a
         # resumable checkpoint.
@@ -154,9 +201,12 @@ def _dump_iteration(st, prob, rt: RuntimeConfig):
     if rt.save_visualizations:
         writers.save_visualizations(rt.dump_dir, st, prob.mask,
                                     tag=f"_{st.iteration:02d}")
+    if viewer is not None:
+        viewer.show(st, prob.mask)
 
 
-def _solve_stepwise(state, prob, sf, cfg, rt, block, verbose):
+def _solve_stepwise(state, prob, sf, cfg, rt, block, verbose, viewer,
+                    check):
     dev = prob.mask.device
     metrics = []
     last_error = float(state.energy) if rt.resume_from else float("nan")
@@ -167,18 +217,24 @@ def _solve_stepwise(state, prob, sf, cfg, rt, block, verbose):
         t = Timer(dev).start()
         s = srps.estimate_lighting(prob, state.rho, state.N, state.s)
         t_light = t.end()
+        if check:
+            check("lighting", s)
         if verbose:
             print(f"\n{'Lightning Estimation':<25}: {t_light:<6.6f}s")
         t = Timer(dev).start()
         mom = srps.s_moments(prob, s)
         rho = srps.estimate_albedo(prob, mom, state.N, state.rho)
         t_albedo = t.end()
+        if check:
+            check("s-moments and albedo", mom.G, mom.J, rho)
         if verbose:
             print(f"{'Albedo Estimation':<25}: {t_albedo:<6.6f}s")
         t = Timer(dev).start()
         z, energy, cg_iters = srps.estimate_depth(
             prob, mom, rho, state.dz, state.z, sf, cfg, block)
         t_depth = t.end()
+        if check:
+            check("depth", z, energy)
         if verbose:
             print(f"{'Depth Estimation':<25}: {t_depth:<6.6f}s")
 
@@ -200,11 +256,13 @@ def _solve_stepwise(state, prob, sf, cfg, rt, block, verbose):
             print(f"{'Relative Error':<25}: {rel_err:<6.3f}")
 
         N, dz = srps.depth_normals(z, prob)
+        if check:
+            check("normals", N, dz)
         state = srps.SRPSState(
             z=z, rho=rho, s=s, N=N, dz=dz, energy=energy,
             last_energy=state.energy, iteration=state.iteration + 1,
             cg_iters=cg_iters)
-        _dump_iteration(state, prob, rt)
+        _iteration_outputs(state, prob, rt, viewer)
         # The reference's stopping rule (SRPS.cu:297-301).
         stop = (error > last_error) or (rel_err < cfg.tolerance) or (
             iteration > cfg.max_iterations)

@@ -127,19 +127,6 @@ def test_cli_help_exits_zero(capsys):
     assert "--cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [
-    ["--dsloc", "a.mat", "--show", "--sharded", "2"],
-    ["--dsloc", "a.mat", "--show"],
-    ["--dsloc", "a.mat", "--dump-operators"],
-    ["--dsloc", "a.mat", "--image-dtype", "bfloat16"],
-], ids=lambda a: a[-1] if a[-1] != "a.mat" else a[-2])
-def test_cli_unported_options_exit_with_roadmap(argv):
-    """Unported options exit before any device or file is touched, also
-    beside a ported one (``--sharded``)."""
-    with pytest.raises(SystemExit, match="not yet ported.*ROADMAP"):
-        cli.main(argv)
-
-
 def test_cli_rejects_oversized_thread_block():
     with pytest.raises(SystemExit, match="1..1024"):
         cli.main(["--dsloc", "a.mat", "--blockx", "512", "--blocky", "4"])

@@ -199,7 +199,7 @@ def test_solve_fused_sharded_matches_jax(rng):
 
 @pytest.mark.parametrize("n", [1, 4])
 def test_dryrun_holds_sharded_to_unsharded_solve(n):
-    traces = sharded.dryrun(n)
+    traces = sharded.dryrun(n, "cpu")
     assert len(traces) == 3 and all(np.all(np.isfinite(t)) for t in traces)
 
 
