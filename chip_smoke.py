@@ -112,16 +112,29 @@ falls back to the CPU or to a plain version):
    and the device time of one launch of each per-step wrapper;
 4j. BASELINE.md configuration 5 (1088 x 1920, n = 20, c = 3, sf = 2)
    through ``parallel.sharded.solve_fused_sharded`` on 4 shards of the
-   card in the three forms: twice on the persistent route (a repeated
-   solve bit-equal), once on the per-step route and once with the plain
-   per-shard steps, each run's launch counts read (every depth CG one
-   persistent launch; on the per-step route its kernels' launches); the
-   stopping rule, and each kernel route at most one outer iteration from
-   the plain run with every energy within phase 3's bound of it; the
+   card in the three forms: the problem and state placed in row bands
+   (every phase on the bands) and the whole-grid glue (``glue="grid"``)
+   in turns, banded, grid, grid, banded, on the persistent route (the
+   banded repeat bit-equal), then the banded route once on the per-step
+   route and once with the plain per-shard steps, each run's launch
+   counts read (every depth CG one persistent launch; on the per-step
+   route its kernels' launches); the stopping rule, and each kernel route
+   and the banded against the whole-grid glue at most one outer iteration
+   from the plain run with every energy within phase 3's bound of it; the
    persistent run the same against phase 4g's unsharded run for the
    standard and CGS forms (Jacobi: printed, as 4g takes the scaled form);
-   then ``--sharded 4`` through the CLI on the phase-4 file (one shard per
-   card present: on one card the persistent kernel).
+   ms per outer iteration and the peak allocated of both glues, and the
+   bytes each shard holds of the placed problem and state; then
+   ``--sharded 4`` through the CLI on the phase-4 file (one shard per card
+   present: on one card the persistent kernel);
+4l. the ``('data', 'x', 'y')`` mesh: ``make_mesh(4, data=2)`` over the
+   card, two 960 x 1280 n = 20 lanes (the phase-4 dataset and seed 2's),
+   each on 2 row bands (``shard_pytree(..., batched=True)``): one
+   ``step_sharded`` of the batch (one persistent launch per lane), each
+   lane's energy within phase 3's bound of its solo solve's first; then
+   each lane's ``solve_sharded`` held to its solo solve as 4j's runs are
+   to the plain run, every depth CG one persistent launch; ms per outer
+   iteration of each lane and of its solo solve.
 
 4k. the options the JAX CLI has beyond the kernels, on the phase-4 file:
    ``--image-dtype bfloat16`` through the CLI (every depth CG one stencil
@@ -1646,16 +1659,24 @@ def solo_trace(path, pad_to=None, cfg=None):
     through the runtime API with ``cfg`` (the default ``SolverConfig``):
     its energy trace and the largest ``sum B^2`` constant of its depth
     operators."""
+    from srmeetsps_cuda_tpu_torch.io.mat_loader import load_mat_dataset
+
+    run = solo_run(load_mat_dataset(path), pad_to, cfg)
+    return run["energies"], run["const"]
+
+
+def solo_run(data, pad_to=None, cfg=None) -> dict:
+    """:func:`solo_trace` of a dataset in memory: its ``energies``, the
+    largest constant (``const``) and the solve's ``seconds`` (the constant
+    is read after each outer iteration, inside the timed solve)."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.config import SolverConfig
-    from srmeetsps_cuda_tpu_torch.io.mat_loader import load_mat_dataset
     from srmeetsps_cuda_tpu_torch.models import srps
     from srmeetsps_cuda_tpu_torch.runtime.solver import prepare
 
     cfg = cfg or SolverConfig()
-    prob, st = prepare(load_mat_dataset(path), cfg, torch.device("cuda"),
-                       pad_to=pad_to)
+    prob, st = prepare(data, cfg, torch.device("cuda"), pad_to=pad_to)
     consts = []
 
     def record(s):
@@ -1663,8 +1684,13 @@ def solo_trace(path, pad_to=None, cfg=None):
         consts.append(float(srps.build_depth_operator(
             prob, mom, s.rho, s.dz, cfg.lam).const))
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     final, trace = srps.solve_fused(st, prob, 2, cfg, on_iteration=record)
-    return trace[:final.iteration].tolist(), max(consts, key=abs)
+    torch.cuda.synchronize()
+    return {"energies": trace[:final.iteration].tolist(),
+            "const": max(consts, key=abs),
+            "seconds": time.perf_counter() - t0}
 
 
 def energy_bound(first, const):
@@ -2122,8 +2148,9 @@ def phase_4k(label, tmp, path, data, z_true, main, const):
 
 
 def shard_form(cfg) -> str:
-    """The row-shard CG form a ``SolverConfig`` runs (estimate_depth_sharded):
-    Jacobi whatever the variant, else CGS or the standard CG."""
+    """The row-shard CG form a ``SolverConfig`` runs
+    (``srps_iteration_sharded``): Jacobi whatever the variant, else CGS or
+    the standard CG."""
     if cfg.jacobi_preconditioner:
         return "jacobi"
     return "cgs" if cfg.cg_variant == "cgs" else "std"
@@ -2152,20 +2179,28 @@ def plain_shard_steps():
 
 def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
     """Phase 4j: ``data`` through ``parallel.sharded.solve_fused_sharded``
-    on ``shards`` shards of the card with ``cfg``: twice on the mesh's
-    route (persistent), once on the per-step route and once with the plain
-    per-shard steps (``shard_route``), the launch counts set to 0 just
-    before each solve and read just after. Checks a finite depth, the
-    stopping rule, the repeat bit for bit, the launches (every depth CG one
-    persistent launch, or on the per-step route its kernels' launches; no
-    other CG kernel; none in the plain run) and, for both kernel routes
-    against the plain run (the same recurrence), at most one outer
-    iteration more or less and every energy within ``energy_bound(plain[0],
-    const)``. Against the unsharded run ``ref`` (energies) of the same
-    file: the standard and CGS persistent runs held as against the plain
-    run; the Jacobi run's gap printed, since the unsharded solve runs the
-    scaled form at sf <= 2. Returns the persistent run as main_path does,
-    with the per-step run under ``steps``."""
+    on ``shards`` shards of the card with ``cfg``. The banded route (the
+    problem and state placed in row bands first, ``shard_problem_rows`` /
+    ``shard_state_rows``, every phase on the bands) and the whole-grid glue
+    (``glue="grid"``: the glue on the whole grid, the CG's operands banded
+    per solve) in turns, banded, grid, grid, banded, each on the mesh's
+    route (persistent); then the banded route on the per-step route and
+    with the plain per-shard steps (``shard_route``). The launch counts
+    are set to 0 just before each solve and read just after, the peak of
+    allocated device memory reset just before. Checks a finite depth, the
+    stopping rule, the banded repeat bit for bit, the launches (every
+    depth CG one persistent launch, or on the per-step route its kernels'
+    launches; no other CG kernel; none in the plain run) and, for each
+    kernel route against the plain run (the same recurrence) and the
+    banded against the whole-grid glue, at most one outer iteration more
+    or less and every energy within ``energy_bound(plain[0], const)``.
+    Against the unsharded run ``ref`` (energies) of the same file: the
+    standard and CGS persistent runs held as against the plain run; the
+    Jacobi run's gap printed, since the unsharded solve runs the scaled
+    form at sf <= 2. Prints ms per outer iteration, the peak allocated and
+    the bytes each shard holds of the placed problem and state. Returns
+    the banded persistent run as main_path does, with the per-step run
+    under ``steps``."""
     import torch
 
     from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
@@ -2178,25 +2213,44 @@ def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
     h, w = data.mask.shape
     what = f"sharded {form} {shards} shards {h}x{w} n={data.I.shape[0]}"
     runs = {}
-    for route in ("persistent", "persistent", "steps", "plain"):
+    for glue, route in (("bands", "persistent"), ("grid", "persistent"),
+                        ("grid", "persistent"), ("bands", "persistent"),
+                        ("bands", "steps"), ("bands", "plain")):
         prob, st = prepare(data, cfg, dev)
+        whole = sum(t.nbytes for tree in (prob, st) for v in tree
+                    for t in (v if isinstance(v, tuple) else (v,))
+                    if isinstance(t, torch.Tensor))
+        per_shard = None
+        if glue == "bands":
+            prob = sharded.shard_problem_rows(prob, mesh)
+            st = sharded.shard_state_rows(st, mesh)
+            per_shard = sharded.shard_bytes(prob, st)
         cg_iters = []
         torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         with (contextlib.nullcontext() if route == "persistent"
               else shard_route(route)):
             final, trace = sharded.solve_fused_sharded(
-                st, prob, int(data.sf), cfg, mesh,
+                st, prob, int(data.sf), cfg, mesh, glue=glue,
                 on_iteration=lambda s: cg_iters.append(s.cg_iters))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        runs.setdefault(route, []).append(dict(
-            energies=trace[:final.iteration].tolist(), seconds=dt,
+        n_it = (final.parts[0] if glue == "bands" else final).iteration
+        runs.setdefault((glue, route), []).append(dict(
+            energies=trace[:n_it].tolist(), seconds=dt,
             launches=read_counts(), cg_iters=[int(c) for c in cg_iters],
-            z=final.z))
-    (first, again), (steps,), (plain,) = (runs[r] for r in (
-        "persistent", "steps", "plain"))
+            z=(sharded.gather_field(final, "z") if glue == "bands"
+               else final.z),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            resident_bytes=resident, whole_bytes=whole,
+            shard_bytes=per_shard))
+        del prob, st, final, trace
+    (first, again), grid, (steps,), (plain,) = (runs[k] for k in (
+        ("bands", "persistent"), ("grid", "persistent"), ("bands", "steps"),
+        ("bands", "plain")))
     energies = first["energies"]
     n_it = len(energies)
     if again["energies"] != energies or not torch.equal(again["z"],
@@ -2205,7 +2259,7 @@ def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
                              f"{again['energies']}, the first {energies}")
     cap = cfg.cg_max_iter + 1
     for name, r in (("persistent", first), ("per-step", steps),
-                    ("plain", plain)):
+                    ("plain", plain), ("whole-grid glue", grid[0])):
         e = r["energies"]
         if not all(map(math.isfinite, e)):
             raise AssertionError(f"{what}: {name} energies not finite: {e}")
@@ -2218,6 +2272,8 @@ def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
                                  f"{r['cg_iters']} off the cap")
     for name, r, route in (("persistent", first, "persistent"),
                            ("repeated", again, "persistent"),
+                           ("whole-grid glue", grid[0], "persistent"),
+                           ("whole-grid glue again", grid[1], "persistent"),
                            ("per-step", steps, "steps")):
         want = dict(expected_counts(0), **shard_counts(
             len(r["energies"]), shards, cfg.cg_max_iter, form, route))
@@ -2239,6 +2295,8 @@ def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
             ("per-step", steps["energies"], plain["energies"], "plain",
              True),
             ("persistent", energies, steps["energies"], "per-step", True),
+            ("banded", energies, grid[0]["energies"], "whole-grid glue",
+             True),
             ("persistent", energies, ref, "unsharded", form != "jacobi")):
         gap = max(abs(x - y) for x, y in zip(e, e_ref))
         bnd = energy_bound(e_ref[0], const)
@@ -2255,24 +2313,124 @@ def sharded_solve(label, data, z_true, cfg, ref, const, shards=4):
         check_close(f"{what} {name} energies vs the {other} run's (const "
                     f"{const})", e[:k], e_ref[:k], 0, bnd)
     per = {name: 1e3 * r["seconds"] / len(r["energies"]) for name, r in (
-        ("persistent", first), ("repeat", again), ("per-step", steps),
-        ("plain", plain))}
+        ("persistent", first), ("grid", grid[0]), ("grid again", grid[1]),
+        ("repeat", again), ("per-step", steps), ("plain", plain))}
+    mem = {name: {"peak_allocated_bytes": r["peak_bytes"],
+                  "resident_bytes": r["resident_bytes"]}
+           for name, r in (("bands", first), ("bands again", again),
+                           ("grid", grid[0]), ("grid again", grid[1]))}
+    gib = lambda b: f"{b / 2**30:.4f} GiB"  # noqa: E731
     print(f"[{label}] {what}: {n_it} outer iterations, final energy "
           f"{energies[-1]:.4f}, solve {first['seconds']:.4f} s; ms/outer-"
-          "iter " + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
-          + f"; launches {({k: v for k, v in first['launches'].items() if v})}"
+          "iter in turns banded " + f"{per['persistent']:.3f}, whole-grid "
+          f"glue {per['grid']:.3f}, {per['grid again']:.3f}, banded "
+          f"{per['repeat']:.3f}; per-step {per['per-step']:.3f}, plain "
+          f"{per['plain']:.3f}; peak allocated banded "
+          f"{gib(first['peak_bytes'])} / {gib(again['peak_bytes'])}, "
+          f"whole-grid glue {gib(grid[0]['peak_bytes'])} / "
+          f"{gib(grid[1]['peak_bytes'])} (allocated at the start "
+          f"{gib(first['resident_bytes'])} / "
+          f"{gib(grid[0]['resident_bytes'])}); bytes per shard of the "
+          f"placed problem and state {first['shard_bytes']} against "
+          f"{first['whole_bytes']} whole "
+          f"({max(first['shard_bytes']) / first['whole_bytes']:.4f}); "
+          f"launches {({k: v for k, v in first['launches'].items() if v})}"
           f", per-step run {len(steps['energies'])} outer iterations, "
           f"launches {({k: v for k, v in steps['launches'].items() if v})};"
           f" CG iterations {first['cg_iters']}, depth RMSE vs truth "
           f"{rmse:.4f}; repeated solve bit-equal; " + "; ".join(out),
           flush=True)
-    print(f"[{label}] energy trace {energies}; per-step "
-          f"{steps['energies']}; plain {plain['energies']}", flush=True)
+    print(f"[{label}] energy trace {energies}; whole-grid glue "
+          f"{grid[0]['energies']}; per-step {steps['energies']}; plain "
+          f"{plain['energies']}", flush=True)
     return {"iterations": n_it, "energies": energies,
             "seconds": first["seconds"], "launches": first["launches"],
-            "rmse": rmse, "ms_per_outer_iteration": per,
+            "rmse": rmse, "ms_per_outer_iteration": per, "memory": mem,
+            "shard_bytes": first["shard_bytes"],
+            "whole_bytes": first["whole_bytes"],
             "steps": {"iterations": len(steps["energies"]),
                       "launches": steps["launches"]}}
+
+
+def data_axis(label, datas, shards=4, data=2):
+    """Phase 4l: ``datas`` (one lane per data group) on ``make_mesh(shards,
+    data=data)`` over the card, each lane in shards / data row bands
+    (``shard_pytree(..., batched=True)``): one ``step_sharded`` of the
+    batch, each lane's energy within phase 3's bound of its solo solve's
+    first (one persistent launch per lane), then each lane's
+    ``solve_sharded``: a finite trace, the stopping rule, at most one outer
+    iteration from its solo solve (``srps.solve_fused``, the stencil CG
+    kernel, run here) and every energy within phase 3's bound of it, every
+    depth CG one persistent shard launch. Prints ms per outer iteration of
+    each lane and of its solo solve."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.config import SolverConfig
+    from srmeetsps_cuda_tpu_torch.parallel import sharded
+    from srmeetsps_cuda_tpu_torch.parallel.batched import (stack_problems,
+                                                           stack_states)
+    from srmeetsps_cuda_tpu_torch.runtime.solver import prepare
+
+    dev = torch.device("cuda")
+    cfg = SolverConfig()
+    mesh = sharded.make_mesh(shards, data=data, devices=dev)
+    what = (f"data axis {mesh.shape} "
+            + " and ".join(f"{d.mask.shape[0]}x{d.mask.shape[1]}"
+                           for d in datas) + f" n={datas[0].I.shape[0]}")
+    solos = [solo_run(d, cfg=cfg) for d in datas]
+    pairs = [prepare(d, cfg, dev) for d in datas]
+    probs = sharded.shard_pytree(stack_problems([p for p, _ in pairs]),
+                                 mesh, batched=True)
+    states = sharded.shard_pytree(stack_states([s for _, s in pairs]), mesh,
+                                  batched=True)
+    del pairs
+    reset_counts()
+    out = sharded.step_sharded(states, probs, 2, cfg, mesh)
+    firsts = [float(t.parts[0].energy) for t in out.trees]
+    if read_counts()["shard_cg persistent"] != len(datas):
+        raise AssertionError(f"{what}: step_sharded launches "
+                             f"{read_counts()}")
+    lines = []
+    for b, (solo, pb, st) in enumerate(zip(solos, probs.trees,
+                                           states.trees)):
+        if not isinstance(pb, sharded.Bands) or \
+                pb.mesh.size != shards // data:
+            raise AssertionError(f"{what}: lane {b} placed as {type(pb)}")
+        ref, const = solo["energies"], solo["const"]
+        bnd = energy_bound(ref[0], const)
+        check_close(f"{what} lane {b} step_sharded energy", [firsts[b]],
+                    ref[:1], 0, bnd)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        final, trace = sharded.solve_sharded(st, pb, 2, cfg, mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_it = final.parts[0].iteration
+        e = trace[:n_it].tolist()
+        want = dict(expected_counts(0), **shard_counts(
+            n_it, shards // data, cfg.cg_max_iter, "std"))
+        if read_counts() != want:
+            raise AssertionError(f"{what}: lane {b} kernel runs "
+                                 f"{read_counts()}, expected {want}")
+        if not all(map(math.isfinite, e)) or not stop_rule_held(
+                e, cfg.tolerance, cfg.max_iterations):
+            raise AssertionError(f"{what}: lane {b} energies {e}")
+        if abs(len(ref) - n_it) > 1:
+            raise AssertionError(f"{what}: lane {b} {n_it} outer "
+                                 f"iterations, its solo solve {len(ref)}")
+        k = min(len(ref), n_it)
+        check_close(f"{what} lane {b} energies vs its solo solve's (const "
+                    f"{const})", e[:k], ref[:k], 0, bnd)
+        lines.append(f"lane {b}: {n_it} outer iterations (solo "
+                     f"{len(ref)}), {1e3 * dt / n_it:.3f} ms/outer-iter "
+                     f"(solo {1e3 * solo['seconds'] / len(ref):.3f}), "
+                     f"energies max gap "
+                     f"{max(abs(x - y) for x, y in zip(e, ref)):.4f} within "
+                     f"{bnd:.3f}")
+    print(f"[{label}] {what}, {shards // data} row bands per lane: "
+          f"step_sharded energies {firsts} within phase 3's bound of the "
+          f"solo solves' first; " + "; ".join(lines), flush=True)
 
 
 def cli_sharded(label, tmp, path, ref, const):
@@ -2610,13 +2768,17 @@ def main() -> int:
                                 e_const)
             shard_runs[shard_form(cfg)] = run
         print(f"[{label}] 1088x1920 n=20 on 4 row shards, ms/outer-iter "
-              "persistent / per-step route: " + ", ".join(
+              "banded persistent / whole-grid glue persistent / banded "
+              "per-step route: " + ", ".join(
                   f"{form} {r['ms_per_outer_iteration']['persistent']:.3f} / "
+                  f"{r['ms_per_outer_iteration']['grid']:.3f} / "
                   f"{r['ms_per_outer_iteration']['per-step']:.3f}"
                   for form, r in shard_runs.items())
               + f", against {per_it[0]:.3f} (standard) and "
               f"{per_it[1]:.3f} (--jacobi) unsharded (4g)", flush=True)
         os.remove(e)
+        # 4l: the data axis, two 960 x 1280 lanes on 2 row bands each.
+        data_axis(label, [a_data, c_data])
 
     # 4i: bench.py's 4K configuration, built in memory, in turns.
     from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset

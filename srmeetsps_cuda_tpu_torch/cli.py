@@ -100,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(a comma-separated line is a multi-object solve), "
                         "one JSON result line each; 'quit' or EOF stops")
     p.add_argument("--sharded", type=int, default=0, metavar="N",
-                   help="row-sharded depth CG over N devices (at most the "
-                        "CUDA devices present; with --cpu, N CPU shards); "
+                   help="row-sharded solve: the problem in N row bands, "
+                        "one per device (at most the CUDA devices present; "
+                        "with --cpu, N CPU shards); "
                         "the image height and its LR height must divide "
                         "by N")
     p.add_argument("--show", action="store_true",
@@ -360,12 +361,16 @@ def _run_batched(datas, locs, cfg, rt, device, prefs):
 
 
 def _run_sharded(data, cfg, n_devices: int, rt, device, prefs):
-    """The fused solve with the row-sharded depth CG (JAX cli.py:401-445):
-    N = min(N, CUDA devices) distinct cards, or N CPU shards with --cpu;
-    the glue runs on the first."""
+    """The fused solve on a row mesh (JAX cli.py:401-445): N = min(N, CUDA
+    devices) distinct cards, or N CPU shards with --cpu. The problem and
+    the state are placed in row bands, each on its shard's device, and
+    every phase runs on the bands (``parallel/sharded.py``); the final
+    state is gathered onto the first device for the outputs."""
     import torch
 
-    from .parallel.sharded import make_mesh_1d, solve_fused_sharded
+    from .parallel.sharded import (gather, gather_field, make_mesh_1d,
+                                   shard_problem_rows, shard_state_rows,
+                                   solve_fused_sharded)
     from .runtime.solver import Timer, _write_outputs, prepare
 
     if device.type == "cuda":
@@ -381,10 +386,13 @@ def _run_sharded(data, cfg, n_devices: int, rt, device, prefs):
         raise SystemExit(
             f"--sharded: image height {h} and LR height {h // sf} must "
             f"both be divisible by {n_devices}")
+    prob = shard_problem_rows(prob, mesh)
+    state = shard_state_rows(state, mesh)
     t = Timer(devices[0]).start()
     final, trace = solve_fused_sharded(state, prob, sf, cfg, mesh,
                                        (prefs.block_x, prefs.block_y))
     dt = t.end()
+    final = gather(final)
     trace = trace.tolist()
     n_it = final.iteration
     metrics = []
@@ -395,7 +403,7 @@ def _run_sharded(data, cfg, n_devices: int, rt, device, prefs):
                     "devices": n_devices})
     print(f"sharded solve ({n_devices} devices): {n_it} iterations "
           f"in {dt:.3f}s, final energy {float(final.energy):.3f}")
-    _write_outputs(final, prob, rt, metrics)
+    _write_outputs(final, gather_field(prob, "mask"), rt, metrics)
 
 
 if __name__ == "__main__":

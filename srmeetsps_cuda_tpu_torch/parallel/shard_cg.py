@@ -161,17 +161,49 @@ def choose_route(devices, plain: bool = False, route=None) -> str:
     return "steps"
 
 
+def groups(mesh: RowMesh) -> list:
+    """``(device, first shard, shard count)`` of each run of consecutive
+    shards on one device, in shard order: one group on a one-device mesh,
+    one per shard on distinct devices."""
+    out = []
+    for i, dev in enumerate(mesh.devices):
+        if out and out[-1][0] == dev:
+            out[-1][2] += 1
+        else:
+            out.append([dev, i, 1])
+    return [tuple(g) for g in out]
+
+
+def _band_shards(mesh, *, F, R0, x0, invd, h, w, sf, lam, tol, max_iter,
+                 cgs, block):
+    """The :class:`shard_kernels.Shard` of each shard of ``mesh`` over the
+    halo stacks ``F`` (n_g, 11, hb + 2, w), ``R0`` (n_g, 4, ...), ``x0``
+    and ``invd`` (n_g, hb + 2, w; or None) of each group of
+    :func:`groups`, their halo rows filled: on a one-device mesh the
+    stacks themselves, with no copy, else views of each shard's planes."""
+    if max_iter < 0:
+        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+    ops = dict(F=F, R0=R0, x0=x0, invd=invd)
+    if len(F) == 1:
+        ops = {k: None if v is None else v[0] for k, v in ops.items()}
+    else:
+        ops = {k: None if v is None else [s for t in v for s in t.unbind(0)]
+               for k, v in ops.items()}
+    return sk.new_shards(mesh.devices, h=h, w=w, sf=sf, lam=lam,
+                         tol2=tol_squared(tol), max_iter=max_iter,
+                         block=tuple(block), cgs=cgs, **ops)
+
+
 def _shards(mesh, x0, op, gm, ktw, z0t, *, sf, lam, tol, max_iter, cgs,
             invd, block):
-    """The per-shard operands and state of one sharded solve: on a
-    one-device mesh views into (N, ...) stacks (``Shard.stack``)."""
+    """The per-shard operands and state of one sharded solve from
+    whole-grid (h, w) operands, banded here: on a one-device mesh views
+    into (N, ...) stacks (``Shard.stack``)."""
     h, w = x0.shape
     n = mesh.size
     hb = check_rows(h, n, sf)
     if w % sf:
         raise ValueError(f"width {w} is not a multiple of sf={sf}")
-    if max_iter < 0:
-        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
     fields = {"P11": op.P11, "P12": op.P12, "P13": op.P13, "P22": op.P22,
               "P23": op.P23, "P33": op.P33, "fwd_x": gm[0], "bwd_x": gm[1],
               "fwd_y": gm[2], "bwd_y": gm[3], "ktw": ktw}
@@ -179,13 +211,13 @@ def _shards(mesh, x0, op, gm, ktw, z0t, *, sf, lam, tol, max_iter, cgs,
                   R0=torch.stack([op.QB1, op.QB2, op.QB3, z0t]), x0=x0,
                   invd=invd)
     if len(set(mesh.devices)) == 1:
-        split = lambda t: stack_rows(t, n, mesh.devices[0])  # noqa: E731
+        split = lambda t: [stack_rows(t, n, mesh.devices[0])]  # noqa: E731
     else:
-        split = lambda t: scatter_rows(t, mesh, True)  # noqa: E731
+        split = lambda t: [b[None] for b in scatter_rows(  # noqa: E731
+            t, mesh, True)]
     ops = {k: None if t is None else split(t) for k, t in planes.items()}
-    return sk.new_shards(mesh.devices, h=hb, w=w, sf=sf, lam=lam,
-                         tol2=tol_squared(tol), max_iter=max_iter,
-                         block=tuple(block), cgs=cgs, **ops)
+    return _band_shards(mesh, h=hb, w=w, sf=sf, lam=lam, tol=tol,
+                        max_iter=max_iter, cgs=cgs, block=block, **ops)
 
 
 def _reduce(shards) -> None:
@@ -290,15 +322,46 @@ persistent.cgs_launches = 0
 persistent.last_launch = None
 
 
-def _solve(mesh, x0, op, gm, ktw, z0t, *, cgs, invd, plain, route, **kw):
-    """One sharded solve by the route :func:`choose_route` picks."""
+def _run(mesh, shards, plain, route) -> None:
+    """One sharded solve over ``shards`` by the route :func:`choose_route`
+    picks."""
     how = choose_route(mesh.devices, plain, route)
-    shards = _shards(mesh, x0, op, gm, ktw, z0t, cgs=cgs, invd=invd, **kw)
     if how == "persistent":
         persistent(shards)
     else:
         _steps(shards, sk.PLAIN if how == "plain" else sk.KERNELS)
+
+
+def _solve(mesh, x0, op, gm, ktw, z0t, *, cgs, invd, plain, route, **kw):
+    shards = _shards(mesh, x0, op, gm, ktw, z0t, cgs=cgs, invd=invd, **kw)
+    _run(mesh, shards, plain, route)
     return _finish(shards, x0)
+
+
+def cg_bands(mesh: RowMesh, F, R0, x0, invd=None, *, sf: int, lam: float,
+             tol: float = 1e-9, max_iter: int = 100, block=(256, 4),
+             cgs: bool = False):
+    """The sharded CG on band-resident operands (the row-sharded outer
+    iteration's, ``parallel/sharded.py``): per group of :func:`groups`, the
+    halo stacks ``F`` (n_g, 11, hb + 2, w) in ``F_ROWS`` order, ``R0``
+    (n_g, 4, hb + 2, w): QB1, QB2, QB3, z0t, ``x0`` and, for the Jacobi
+    PCG, ``invd`` (n_g, hb + 2, w), their halo rows filled. On a one-device
+    mesh the kernel reads the stacks in place. ``cgs`` runs the
+    Chronopoulos-Gear CG (no Jacobi form); the route is the mesh's
+    (:func:`choose_route`). Returns ``(x, iterations, r1)``: x per group
+    (n_g, hb, w), the scalars on the first shard's device."""
+    hb, w = x0[0].shape[-2] - 2, x0[0].shape[-1]
+    shards = _band_shards(mesh, F=F, R0=R0, x0=x0, invd=invd, h=hb, w=w,
+                          sf=sf, lam=lam, tol=tol, max_iter=max_iter,
+                          cgs=cgs, block=block)
+    _run(mesh, shards, False, None)
+    if shards[0].stack is not None:
+        xs = [shards[0].stack.x]
+    else:
+        xs = [torch.stack([s.x for s in shards[first:first + count]])
+              for _, first, count in groups(mesh)]
+    iters, r1 = sk.result(shards[0])
+    return xs, iters, r1
 
 
 def cg_sharded(mesh: RowMesh, x0, op, gm, ktw, z0t, *, sf: int, lam: float,

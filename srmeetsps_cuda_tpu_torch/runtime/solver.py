@@ -155,7 +155,7 @@ def _solve(data, cfg, rt, device, prefs, verbose):
     loop = _solve_fused if rt.fused_outer_loop else _solve_stepwise
     final, metrics = loop(state, prob, sf, cfg, rt, block, verbose, viewer,
                           check)
-    _write_outputs(final, prob, rt, metrics)
+    _write_outputs(final, prob.mask, rt, metrics)
     if viewer is not None:
         viewer.finish()
     return final, metrics
@@ -272,7 +272,7 @@ def _solve_stepwise(state, prob, sf, cfg, rt, block, verbose, viewer,
             return state, metrics
 
 
-def _write_outputs(state, prob, rt: RuntimeConfig, metrics):
+def _write_outputs(state, mask, rt: RuntimeConfig, metrics):
     if rt.metrics_jsonl:
         parent = os.path.dirname(rt.metrics_jsonl)
         if parent:
@@ -281,8 +281,7 @@ def _write_outputs(state, prob, rt: RuntimeConfig, metrics):
             for rec in metrics:
                 f.write(json.dumps(rec) + "\n")
     if rt.dump_iterations:
-        writers.dump_state(rt.dump_dir, state, prob.mask, fmt=rt.dump_format,
+        writers.dump_state(rt.dump_dir, state, mask, fmt=rt.dump_format,
                            tag="_final")
     if rt.save_visualizations:
-        writers.save_visualizations(rt.dump_dir, state, prob.mask,
-                                    tag="_final")
+        writers.save_visualizations(rt.dump_dir, state, mask, tag="_final")
