@@ -152,6 +152,24 @@ falls back to the CPU or to a plain version):
    in 4i one bf16 ``"stencil"`` solve of the 4K configuration, its peak
    memory printed beside the f32 run's.
 
+5. the port's bench, ``python -m srmeetsps_cuda_tpu_torch.bench`` (bench.py's
+   sections on bench.py's inputs), as subprocesses: first ``torch.profiler``
+   over a chain of two ``srps_iteration`` calls on the bench's 960 x 1280
+   input (no synchronise and no host read inside it, so the CUDA events of
+   the bench's chains time device work alone), and that input solved on
+   the card with the stencil CG's plain version; then the default mode,
+   ``4k`` and ``batched-mixed``. Each exits 0, every line it prints is
+   JSON, its last line holds every key of ``bench.KEYS`` for the mode and
+   no ``*_error`` key, and each section's stderr note counts stencil CG
+   launches (the device metrics' direct CG launches too). The default
+   mode's ``accuracy_ok``, ``bf16_accuracy_ok`` and
+   ``matpath_energy_matches`` are true, its ``iterations`` within one of
+   the plain solve's and its ``final_energy`` within phase 3's energy bound
+   of the plain trace at that iteration, its ``ms_per_cg_iter`` within a
+   factor 2 of phase 3's time of the stencil kernel at 960 x 1280;
+   ``bf16_energy_ok`` is printed, not held (the bf16 energy's constant is
+   the reference's).
+
 The line before the last but one is a JSON object with one entry per
 kernel and mode (its times per CG iteration at the main path's shapes, and
 the least time the card could take for the same work), the line before the
@@ -169,6 +187,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2523,6 +2542,147 @@ def api_lanes(label, datas, cfg):
     return n_l
 
 
+BENCH = [sys.executable, "-m", "srmeetsps_cuda_tpu_torch.bench"]
+BENCH_NOTE = re.compile(r"^\[bench \+\s*[\d.]+s\] (\S+) done; launches "
+                        r"(\{.*\})$", re.M)
+
+
+def bench_run(label, mode: str, timeout: int) -> tuple:
+    """Phase 5: ``mode`` of the port's bench (``""`` the default) as a
+    subprocess. Returns its last line and the launches of each section
+    (its stderr notes); raises unless it exits 0, prints only JSON lines,
+    the last with every key of the mode and no ``*_error`` key, and every
+    section launched the stencil CG."""
+    from srmeetsps_cuda_tpu_torch import bench
+
+    name = mode or "main"
+    t0 = time.perf_counter()
+    proc = subprocess.run(BENCH + ([mode] if mode else []), cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {name} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    lines = [json.loads(s) for s in proc.stdout.splitlines()]
+    last = lines[-1]
+    missing = [k for k in bench.KEYS[name] if k not in last]
+    errors = [k for k in last if k.endswith("_error")]
+    if missing or errors:
+        raise AssertionError(f"bench {name}: keys missing {missing}, errors "
+                             f"{ {k: last[k] for k in errors} }")
+    launches = {m.group(1): json.loads(m.group(2))
+                for m in BENCH_NOTE.finditer(proc.stderr)}
+    if not launches or any(n["stencil_cg"] < 1 for n in launches.values()):
+        raise AssertionError(f"bench {name}: stencil_cg launches per "
+                             f"section {launches}")
+    if name == "main" and launches["device_metrics"]["direct_cg"] < 1:
+        raise AssertionError(f"bench: the device metrics launched no "
+                             f"direct_cg: {launches}")
+    print(f"[{label}] bench {name}: exit 0 in {wall:.1f} s, {len(lines)} "
+          f"JSON lines, launches per section {launches}", flush=True)
+    print(f"[{label}] bench {name} last line: {json.dumps(last)}",
+          flush=True)
+    return last, launches, wall
+
+
+def chain_host_waits(data) -> dict:
+    """Phase 5: the synchronise calls and host reads ``torch.profiler``
+    sees in a chain of two ``srps_iteration`` calls on ``data`` (after a
+    warm one) beyond those of an empty block (the profiler's own
+    ``cudaDeviceSynchronize`` as it stops), with the runtime's kernel
+    launch calls, which show that it sees runtime calls at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from srmeetsps_cuda_tpu_torch.config import SolverConfig
+    from srmeetsps_cuda_tpu_torch.models import srps
+    from srmeetsps_cuda_tpu_torch.runtime.solver import prepare
+
+    cfg = SolverConfig()
+    prob, st = prepare(data, cfg, torch.device("cuda"))
+    st = srps.srps_iteration(st, prob, 2, cfg)
+    torch.cuda.synchronize()
+    seen = {}
+    for n in (0, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                st = srps.srps_iteration(st, prob, 2, cfg)
+        torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        seen[n] = {"synchronize": sum("Synchronize" in s for s in names),
+                   "host_reads": names.count("aten::_local_scalar_dense"),
+                   "launch_calls": sum(s.startswith("cudaLaunch")
+                                       for s in names)}
+    return {k: seen[2][k] - seen[0][k] for k in seen[2]}
+
+
+def bench_phase(label, stencil_entry: dict) -> dict:
+    """Phase 5 (see the module docstring). Returns the figures the
+    ``kernels`` line keeps: under the stencil CG's entry and the direct
+    CG's."""
+    from srmeetsps_cuda_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    data = bench.synthetic_dataset()
+    waits = chain_host_waits(data)
+    if waits["launch_calls"] and (waits["synchronize"]
+                                  or waits["host_reads"]):
+        raise AssertionError(f"a chain of srps_iteration waits for the "
+                             f"card: {waits}")
+    print(f"[{label}] bench: a chain of 2 srps_iteration calls on the "
+          f"bench's 960x1280 input: {waits['synchronize']} synchronise "
+          f"calls, {waits['host_reads']} host reads among "
+          f"{waits['launch_calls']} launch calls"
+          + ("" if waits["launch_calls"] else
+             " (the profiler saw no runtime call: not measured)"),
+          flush=True)
+    with plain_depth_cg("stencil"):
+        plain = solo_run(data)
+    del data
+    last, notes, wall = bench_run(label, "", 900)
+    for key in ("accuracy_ok", "bf16_accuracy_ok", "matpath_energy_matches"):
+        if last[key] is not True:
+            raise AssertionError(f"bench: {key} is {last[key]}")
+    ref, n = plain["energies"], last["iterations"]
+    bnd = energy_bound(ref[0], plain["const"])
+    at = ref[min(n, len(ref)) - 1]
+    if abs(n - len(ref)) > 1 or not abs(last["final_energy"] - at) <= bnd:
+        raise AssertionError(
+            f"bench headline: {n} outer iterations, final energy "
+            f"{last['final_energy']}; plain depth CG {len(ref)}, {ref} "
+            f"(bound {bnd:.3f})")
+    ratio = last["ms_per_cg_iter"] / stencil_entry["ms"]
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError(
+            f"bench ms_per_cg_iter {last['ms_per_cg_iter']:.4f} against "
+            f"phase 3's {stencil_entry['ms']:.4f}")
+    print(f"[{label}] bench headline: {n} outer iterations (plain depth CG "
+          f"{len(ref)}), final energy {last['final_energy']:.4f} (plain "
+          f"{at:.4f}, phase 3's bound {bnd:.3f}); ms_per_cg_iter "
+          f"{last['ms_per_cg_iter']:.4f} = {ratio:.3f} x phase 3's "
+          f"{stencil_entry['ms']:.4f}; accuracy rmse {last['rmse']:.5f}, "
+          f"normals {last['normals_err_deg']:.3f} deg; bf16_energy_ok "
+          f"{last['bf16_energy_ok']} (printed, not held)", flush=True)
+    runs = {"main": (last, notes, wall)}
+    for mode, timeout in (("4k", 600), ("batched-mixed", 600)):
+        runs[mode] = bench_run(label, mode, timeout)
+    total = lambda k: sum(n[k] for _, ns, _ in runs.values()  # noqa: E731
+                          for n in ns.values())
+    print(f"[{label}] phase 5 (bench): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    keep = ("ms_per_outer_iter", "ms_per_cg_iter", "pcg_matvec_gflops",
+            "1080p_ms_per_cg_iter", "seconds_per_solve", "iterations")
+    return {
+        "stencil_cg": {"launches": total("stencil_cg"),
+                       **{k: last[k] for k in keep}},
+        "direct_cg": {"launches": total("direct_cg"),
+                      **{k: last[k] for k in ("ms_per_cg_iter_streaming",
+                                              "cg_bytes_per_iter_mb",
+                                              "gbps")}},
+    }
+
+
 def grid_key(grid) -> str:
     h, w, sf = grid
     return f"{h}x{w} sf {sf}"
@@ -2847,6 +3007,13 @@ def main() -> int:
           f"iterations, peak allocated {k4_bf16['peak_bytes'] / 2**30:.3f} "
           f"GiB against f32 "
           f"{k4_stencil['peak_allocated_bytes'] / 2**30:.3f} GiB", flush=True)
+
+    # 5: the port's bench on the card.
+    del data4k, true4k
+    torch.cuda.empty_cache()
+    figures = bench_phase(label, entry)
+    entry["bench"] = figures["stencil_cg"]
+    direct_launches["direct"]["bench"] = figures["direct_cg"]
 
     print(json.dumps({"kernels": [entry, cgs_entry, scaled_entry, pcg_entry,
                                   big_entry]

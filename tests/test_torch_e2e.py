@@ -153,6 +153,7 @@ assert not bad, bad
 sharded = {"srmeetsps_cuda_tpu_torch.parallel." + m
            for m in ("shard_cg", "shard_kernels", "sharded")}
 assert sharded <= new, sorted(sharded - new)
+assert "srmeetsps_cuda_tpu_torch.bench" in new
 print(len([n for n in new if n.startswith("srmeetsps_cuda_tpu_torch")]))
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
