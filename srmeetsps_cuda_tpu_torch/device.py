@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from . import trace as tracing
+
 
 def set_precision() -> None:
     """Full-precision float32 matmuls and convolutions (no TF32)."""
@@ -40,6 +42,8 @@ def resolve_device(cpu: bool = False, ordinal: int = 0) -> torch.device:
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for queued work on ``device`` (a no-op on the CPU)."""
+    """Wait for queued work on ``device`` (a no-op on the CPU), counted as
+    a host read (``trace.py``)."""
+    tracing.count("host_reads")
     if device.type == "cuda":
         torch.cuda.synchronize(device)

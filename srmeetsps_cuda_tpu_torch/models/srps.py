@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace as tracing
 from ..config import SolverConfig
 from ..ops import gradients as gradops
 from ..ops import grid as gridops
@@ -91,12 +92,16 @@ class SRPSState(NamedTuple):
     cg_iters: torch.Tensor
 
 
-def _f32(a, device) -> torch.Tensor:
+def to_f32(a, device) -> torch.Tensor:
     """A row-major float32 tensor on ``device`` (MAT files load
-    column-major, and elementwise ops would carry those strides on)."""
+    column-major, and elementwise ops would carry those strides on). A
+    host array's move is the span ``srps.prepare.upload``."""
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=torch.float32).contiguous()
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+    a = np.ascontiguousarray(a, np.float32)
+    with tracing.span("srps.prepare.upload", pinned=False):
+        tracing.count("h2d_bytes", a.nbytes)
+        return torch.as_tensor(a, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -121,16 +126,16 @@ def build_problem(I, mask, K, sf: int, z0s, device,
     """
     if image_dtype not in IMAGE_DTYPES:
         raise ValueError(f"unknown image_dtype {image_dtype!r}")
-    mask = (_f32(mask, device) != 0).to(torch.float32)
+    mask = (to_f32(mask, device) != 0).to(torch.float32)
     h, w = mask.shape
-    I = (_f32(I, device).permute(1, 0, 2, 3) * mask).to(
+    I = (to_f32(I, device).permute(1, 0, 2, 3) * mask).to(
         IMAGE_DTYPES[image_dtype])
     c_, n_ = I.shape[:2]
     masks = gridops.lr_mask(mask, sf)
     K = np.asarray(K, np.float32)
     xx, yy = gridops.meshgrid_camera(h, w, float(K[0][2]), float(K[1][2]),
                                      device=device)
-    z0s = _f32(z0s, device) * masks
+    z0s = to_f32(z0s, device) * masks
     return SRPSProblem(
         I=I.reshape(c_, n_, h * w).contiguous(),
         mask=mask,
@@ -157,7 +162,7 @@ def init_state(prob: SRPSProblem, z_init) -> SRPSState:
     s = torch.zeros((n, c, 4), dtype=torch.float32, device=dev)
     s[:, :, 2] = -1.0
     rho = (0.5 * prob.mask).expand(c, h, w).contiguous()
-    z = _f32(z_init, dev) * prob.mask
+    z = to_f32(z_init, dev) * prob.mask
     N, dz = depth_normals(z, prob)
     nan = torch.tensor(math.nan, dtype=torch.float32, device=dev)
     return SRPSState(z=z, rho=rho, s=s, N=N, dz=dz, energy=nan,
@@ -557,8 +562,12 @@ def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
     """Warm-started CG depth solve and its energy (devicecalls.cu:636-786):
     the depth operator, then :func:`depth_cg`. Returns ``(z_new, energy,
     cg_iterations)`` as device tensors."""
-    op = build_depth_operator(prob, mom, rho, dz, cfg.lam)
-    return depth_cg(z, op, prob, sf, cfg, block)
+    with tracing.span("srps.depth_operator"):
+        op = build_depth_operator(prob, mom, rho, dz, cfg.lam)
+    with tracing.span("srps.depth_cg", lanes=1):
+        out = depth_cg(z, op, prob, sf, cfg, block)
+        tracing.count("cg_iters", out[2])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -571,8 +580,8 @@ def check_finite(phase: str, *tensors) -> None:
     ``tensors`` is finite: one host read (the ``--nan-check`` test after
     each phase; the JAX package's ``jax_debug_nans`` raises the same
     exception type)."""
-    if not bool(torch.stack([torch.isfinite(t).all() for t in tensors])
-                .all()):
+    if not tracing.read(bool, torch.stack(
+            [torch.isfinite(t).all() for t in tensors]).all()):
         raise FloatingPointError(
             f"invalid value (nan or inf) after the {phase} phase")
 
@@ -583,16 +592,20 @@ def srps_iteration(state: SRPSState, prob: SRPSProblem, sf: int,
     ``check(phase, *outputs)`` (:func:`check_finite`) sees each phase's
     outputs."""
     check = check or (lambda *_: None)
-    s = estimate_lighting(prob, state.rho, state.N, state.s)
-    check("lighting", s)
-    mom = s_moments(prob, s)
-    rho = estimate_albedo(prob, mom, state.N, state.rho)
-    check("s-moments and albedo", mom.G, mom.J, rho)
-    z, energy, cg_iters = estimate_depth(prob, mom, rho, state.dz, state.z,
-                                         sf, cfg, block)
-    check("depth", z, energy)
-    N, dz = depth_normals(z, prob)
-    check("normals", N, dz)
+    with tracing.span("srps.iteration"):
+        with tracing.span("srps.lighting"):
+            s = estimate_lighting(prob, state.rho, state.N, state.s)
+            check("lighting", s)
+        with tracing.span("srps.albedo"):
+            mom = s_moments(prob, s)
+            rho = estimate_albedo(prob, mom, state.N, state.rho)
+            check("s-moments and albedo", mom.G, mom.J, rho)
+        z, energy, cg_iters = estimate_depth(prob, mom, rho, state.dz,
+                                             state.z, sf, cfg, block)
+        check("depth", z, energy)
+        with tracing.span("srps.normals"):
+            N, dz = depth_normals(z, prob)
+            check("normals", N, dz)
     return SRPSState(z=z, rho=rho, s=s, N=N, dz=dz, energy=energy,
                      last_energy=state.energy,
                      iteration=state.iteration + 1, cg_iters=cg_iters)
@@ -619,7 +632,10 @@ def solve_fused(state: SRPSState, prob: SRPSProblem, sf: int,
     trace = torch.full((cfg.max_iterations + 2,), math.nan,
                        dtype=torch.float32, device=prob.mask.device)
     st = state
-    while st.iteration == 0 or not bool(should_stop(st, cfg)):
+    while True:
+        with tracing.span("srps.stop"):
+            if st.iteration and tracing.read(bool, should_stop(st, cfg)):
+                break
         st = srps_iteration(st, prob, sf, cfg, block, check)
         if st.iteration - 1 < trace.shape[0]:
             trace[st.iteration - 1] = st.energy

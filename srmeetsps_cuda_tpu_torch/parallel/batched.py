@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from .. import trace as tracing
 from ..config import SolverConfig
 from ..models import srps
 from ..ops.gradients import GradientMasks
@@ -68,8 +69,10 @@ def _lane(value, b: int, scalar):
 
 def lane(stacked, b: int):
     """Lane ``b`` of a stacked problem or state, as the single-problem
-    container (tensor fields are views)."""
-    scalars = {"fx": float, "fy": float, "iteration": int}
+    container (tensor fields are views). The stacked iteration lives on the
+    device after a lockstep solve: its read is a host read."""
+    scalars = {"fx": float, "fy": float,
+               "iteration": lambda t: tracing.read(int, t)}
     return type(stacked)(*(
         _lane(v, b, scalars.get(k)) for k, v in stacked._asdict().items()))
 
@@ -110,36 +113,55 @@ def solve_batch(states, probs, sf: int, cfg: SolverConfig, mode: str = "auto",
     Returns (list of final states, list of energy traces), one per lane."""
     if resolve_batch_mode(mode) == "stream":
         return solve_batched_streaming(states, probs, sf, cfg, block)
-    if not isinstance(states, srps.SRPSState):
-        states, probs = stack_states(list(states)), stack_problems(list(probs))
-    final, trace = solve_batched(states, probs, sf, cfg, block)
-    return unstack(final), list(trace)
+    with tracing.lanes(probs):
+        if not isinstance(states, srps.SRPSState):
+            states, probs = (stack_states(list(states)),
+                             stack_problems(list(probs)))
+        final, trace = solve_batched(states, probs, sf, cfg, block)
+        with tracing.span("srps.results"):
+            return unstack(final), list(trace)
 
 
 def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
                         lanes: list, sf: int, cfg: SolverConfig, block):
     """One outer iteration of every lane; the depth CG of all lanes is one
-    launch (``srps.depth_cg`` on the stacked operator)."""
+    launch (``srps.depth_cg`` on the stacked operator). Lane b's phases
+    are spans with ``lane=b``."""
     lam = cfg.lam
-    ss, moms, rhos, ops = [], [], [], []
-    for b, pb in enumerate(lanes):
-        s = srps.estimate_lighting(pb, states.rho[b], states.N[b],
-                                   states.s[b])
-        mom = srps.s_moments(pb, s)
-        rho = srps.estimate_albedo(pb, mom, states.N[b], states.rho[b])
-        ss.append(s)
-        moms.append(mom)
-        rhos.append(rho)
-        ops.append(srps.build_depth_operator(pb, mom, rho, states.dz[b], lam))
-    op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
-    z, energy, iters = srps.depth_cg(states.z, op, probs, sf, cfg, block,
-                                     lanes=list(zip(ops, lanes)))
-    N, dz = (torch.stack(t) for t in zip(*(
-        srps.depth_normals(z[b], pb) for b, pb in enumerate(lanes))))
-    return srps.SRPSState(
-        z=z, rho=torch.stack(rhos), s=torch.stack(ss), N=N, dz=dz,
-        energy=energy, last_energy=states.energy,
-        iteration=states.iteration + 1, cg_iters=iters)
+    B = len(lanes)
+    with tracing.span("srps.iteration", lanes=B):
+        ss, moms, rhos, ops = [], [], [], []
+        for b, pb in enumerate(lanes):
+            with tracing.span("srps.lighting", lane=b):
+                s = srps.estimate_lighting(pb, states.rho[b], states.N[b],
+                                           states.s[b])
+            with tracing.span("srps.albedo", lane=b):
+                mom = srps.s_moments(pb, s)
+                rho = srps.estimate_albedo(pb, mom, states.N[b],
+                                           states.rho[b])
+            ss.append(s)
+            moms.append(mom)
+            rhos.append(rho)
+            with tracing.span("srps.depth_operator", lane=b):
+                ops.append(srps.build_depth_operator(pb, mom, rho,
+                                                     states.dz[b], lam))
+        with tracing.span("srps.depth_operator", lanes=B):
+            op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
+        with tracing.span("srps.depth_cg", lanes=B):
+            z, energy, iters = srps.depth_cg(
+                states.z, op, probs, sf, cfg, block,
+                lanes=list(zip(ops, lanes)))
+            tracing.count("cg_iters", iters)
+        normals = []
+        for b, pb in enumerate(lanes):
+            with tracing.span("srps.normals", lane=b):
+                normals.append(srps.depth_normals(z[b], pb))
+        N, dz = (torch.stack(t) for t in zip(*normals))
+        del normals  # the lanes' own N and dz, before the stacks below
+        return srps.SRPSState(
+            z=z, rho=torch.stack(rhos), s=torch.stack(ss), N=N, dz=dz,
+            energy=energy, last_energy=states.energy,
+            iteration=states.iteration + 1, cg_iters=iters)
 
 
 def _freeze(stopped: torch.Tensor, old: srps.SRPSState,
@@ -167,12 +189,14 @@ def solve_batched(states: srps.SRPSState, probs: srps.SRPSProblem, sf: int,
     stopped = torch.zeros(B, dtype=torch.bool, device=dev)
     states = states._replace(iteration=states.iteration.to(dev))
     for it in range(trace_len):
-        if bool(stopped.all()):
-            break
-        merged = _freeze(stopped, states,
-                         _iteration_lockstep(states, probs, lanes, sf, cfg,
-                                             block))
-        trace[:, it] = torch.where(stopped, trace[:, it], merged.energy)
-        stopped = stopped | srps.should_stop(merged, cfg)
+        with tracing.span("srps.stop"):
+            if tracing.read(bool, stopped.all()):
+                break
+        merged = _iteration_lockstep(states, probs, lanes, sf, cfg, block)
+        with tracing.span("srps.stop"):
+            # Rebound, so that the unfrozen iterate is freed here.
+            merged = _freeze(stopped, states, merged)
+            trace[:, it] = torch.where(stopped, trace[:, it], merged.energy)
+            stopped = stopped | srps.should_stop(merged, cfg)
         states = merged
     return states, trace

@@ -12,7 +12,8 @@ Port of ``srmeetsps_cuda_tpu/runtime/solver.py`` (the control flow of
 Both run the run-level options of ``RuntimeConfig``: dumps, checkpoints,
 visualizations, the live view, the operator dump, the finiteness check of
 each phase (``nan_check``) and a ``torch.profiler`` trace
-(``profile_dir``).
+(``profile_dir``), which holds the phases' ``srps.*`` ranges (``trace.py``)
+and has their spans and counters written beside it.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import socket
 import time
 
 import numpy as np
 import torch
 
+from .. import trace as tracing
 from ..config import Preferences, RuntimeConfig, SolverConfig
 from ..device import synchronize
 from ..io import writers
@@ -64,23 +67,27 @@ def prepare(data, cfg: SolverConfig, device: torch.device,
     are exactly zero."""
     h, w = np.asarray(data.mask).shape
     sf = int(data.sf)
-    z0 = torch.as_tensor(np.ascontiguousarray(data.z0, np.float32),
-                         device=device)
-    zs, z_init = preprocess_depth(z0, h, w, cfg)
-    mask, I = data.mask, data.I
     if pad_to is not None:
         H, W = pad_to
         if H % sf or W % sf or H < h or W < w:
             raise ValueError(f"bad pad_to {pad_to} for ({h},{w}), sf={sf}")
-        mask, I = (torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                   device=device) for a in (mask, I))
-        # 0 < h <= H: the next multiple of H is H itself.
-        mask, I, z_init = (pad_to_multiple(a, H, W)[0]
-                           for a in (mask, I, z_init))
-        zs = pad_to_multiple(zs, H // sf, W // sf)[0]
-    prob = srps.build_problem(I, mask, data.K, sf, zs, device,
-                              image_dtype=cfg.image_dtype)
-    state = srps.init_state(prob, z_init)
+    with tracing.span("srps.prepare"):
+        z0 = srps.to_f32(data.z0, device)
+        zs, z_init = preprocess_depth(z0, h, w, cfg)
+        mask, I = data.mask, data.I
+        if pad_to is not None:
+            mask, I = (srps.to_f32(a, device) for a in (mask, I))
+            with tracing.span("srps.prepare.pad"):
+                # 0 < h <= H: the next multiple of H is H itself.
+                mask, I, z_init = (pad_to_multiple(a, H, W)[0]
+                                   for a in (mask, I, z_init))
+                zs = pad_to_multiple(zs, H // sf, W // sf)[0]
+        with tracing.span("srps.prepare.problem"):
+            prob = srps.build_problem(I, mask, data.K, sf, zs, device,
+                                      image_dtype=cfg.image_dtype)
+        tracing.bind(prob)
+        with tracing.span("srps.prepare.state"):
+            state = srps.init_state(prob, z_init)
     if return_zs:
         return prob, state, zs
     return prob, state
@@ -100,21 +107,29 @@ def state_from_checkpoint(ck: dict, device: torch.device) -> srps.SRPSState:
 @contextlib.contextmanager
 def profiling(profile_dir, device: torch.device):
     """A ``torch.profiler`` trace of the block, CUDA activity included on
-    a CUDA device, written as a Chrome trace (``*.pt.trace.json``) into
-    ``profile_dir`` (JAX runtime/solver.py:148-160 takes a
-    ``jax.profiler`` trace); nothing when ``profile_dir`` is None."""
+    a CUDA device, written as a Chrome trace (``<stem>.pt.trace.json``)
+    into ``profile_dir`` (JAX runtime/solver.py:148-160 takes a
+    ``jax.profiler`` trace), with the block's spans and counters beside it
+    (``<stem>.spans.jsonl``, ``trace.dump``); nothing when
+    ``profile_dir`` is None."""
     if not profile_dir:
         yield
         return
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
-        yield
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield
+    finally:
+        os.makedirs(profile_dir, exist_ok=True)
+        stem = os.path.join(profile_dir, f"{socket.gethostname()}_"
+                            f"{os.getpid()}.{time.time_ns()}")
+        prof.export_chrome_trace(stem + ".pt.trace.json")
+        tracing.dump(stem + ".spans.jsonl")
 
 
 def solve(data, cfg: SolverConfig = SolverConfig(),
@@ -177,14 +192,16 @@ def _solve_fused(state, prob, sf, cfg, rt, block, verbose, viewer, check):
     t = Timer(prob.mask.device).start()
     final, _ = srps.solve_fused(state, prob, sf, cfg, block,
                                 on_iteration=record, check=check)
-    dt = t.end()
-    metrics = [{"iteration": k, "energy": float(e), "cg_iterations": int(c)}
-               for k, e, c in records]
-    n_it = final.iteration
-    metrics.append({"total_seconds": dt, "iterations": n_it})
-    if verbose:
-        print(f"fused solve: {n_it} iterations in {dt:.3f}s, "
-              f"final energy {float(final.energy):.3f}")
+    with tracing.span("srps.results"):
+        dt = t.end()
+        metrics = [{"iteration": k, "energy": tracing.read(float, e),
+                    "cg_iterations": tracing.read(int, c)}
+                   for k, e, c in records]
+        n_it = final.iteration
+        metrics.append({"total_seconds": dt, "iterations": n_it})
+        if verbose:
+            print(f"fused solve: {n_it} iterations in {dt:.3f}s, final "
+                  f"energy {tracing.read(float, final.energy):.3f}")
     for st in states:
         _iteration_outputs(st, prob, rt, viewer)
     return final, metrics
@@ -209,55 +226,62 @@ def _solve_stepwise(state, prob, sf, cfg, rt, block, verbose, viewer,
                     check):
     dev = prob.mask.device
     metrics = []
-    last_error = float(state.energy) if rt.resume_from else float("nan")
+    last_error = (tracing.read(float, state.energy) if rt.resume_from
+                  else float("nan"))
     iteration = state.iteration + 1
     while True:
         # Per-phase timing with the reference's print format
         # (SRPS.cu:277-295); the normals after the summary are untimed.
-        t = Timer(dev).start()
-        s = srps.estimate_lighting(prob, state.rho, state.N, state.s)
-        t_light = t.end()
-        if check:
-            check("lighting", s)
-        if verbose:
-            print(f"\n{'Lightning Estimation':<25}: {t_light:<6.6f}s")
-        t = Timer(dev).start()
-        mom = srps.s_moments(prob, s)
-        rho = srps.estimate_albedo(prob, mom, state.N, state.rho)
-        t_albedo = t.end()
-        if check:
-            check("s-moments and albedo", mom.G, mom.J, rho)
-        if verbose:
-            print(f"{'Albedo Estimation':<25}: {t_albedo:<6.6f}s")
-        t = Timer(dev).start()
-        z, energy, cg_iters = srps.estimate_depth(
-            prob, mom, rho, state.dz, state.z, sf, cfg, block)
-        t_depth = t.end()
-        if check:
-            check("depth", z, energy)
-        if verbose:
-            print(f"{'Depth Estimation':<25}: {t_depth:<6.6f}s")
+        with tracing.span("srps.iteration"):
+            with tracing.span("srps.lighting"):
+                t = Timer(dev).start()
+                s = srps.estimate_lighting(prob, state.rho, state.N, state.s)
+                t_light = t.end()
+                if check:
+                    check("lighting", s)
+            if verbose:
+                print(f"\n{'Lightning Estimation':<25}: {t_light:<6.6f}s")
+            with tracing.span("srps.albedo"):
+                t = Timer(dev).start()
+                mom = srps.s_moments(prob, s)
+                rho = srps.estimate_albedo(prob, mom, state.N, state.rho)
+                t_albedo = t.end()
+                if check:
+                    check("s-moments and albedo", mom.G, mom.J, rho)
+            if verbose:
+                print(f"{'Albedo Estimation':<25}: {t_albedo:<6.6f}s")
+            t = Timer(dev).start()
+            z, energy, cg_iters = srps.estimate_depth(
+                prob, mom, rho, state.dz, state.z, sf, cfg, block)
+            t_depth = t.end()
+            if check:
+                check("depth", z, energy)
+            if verbose:
+                print(f"{'Depth Estimation':<25}: {t_depth:<6.6f}s")
 
-        error = float(energy)
-        rel_err = abs(last_error - error) / abs(error)
-        metrics.append({
-            "iteration": iteration,
-            "energy": error,
-            "relative_error": rel_err,
-            "cg_iterations": int(cg_iters),
-            "lighting_seconds": t_light,
-            "albedo_seconds": t_albedo,
-            "depth_seconds": t_depth,
-            "seconds": t_light + t_albedo + t_depth,
-        })
-        if verbose:
-            print(f"\nIteration {iteration:02d} summary")
-            print(f"{'Error':<25}: {error:<6.3f}")
-            print(f"{'Relative Error':<25}: {rel_err:<6.3f}")
+            with tracing.span("srps.stop"):
+                error = tracing.read(float, energy)
+                cg = tracing.read(int, cg_iters)
+            rel_err = abs(last_error - error) / abs(error)
+            metrics.append({
+                "iteration": iteration,
+                "energy": error,
+                "relative_error": rel_err,
+                "cg_iterations": cg,
+                "lighting_seconds": t_light,
+                "albedo_seconds": t_albedo,
+                "depth_seconds": t_depth,
+                "seconds": t_light + t_albedo + t_depth,
+            })
+            if verbose:
+                print(f"\nIteration {iteration:02d} summary")
+                print(f"{'Error':<25}: {error:<6.3f}")
+                print(f"{'Relative Error':<25}: {rel_err:<6.3f}")
 
-        N, dz = srps.depth_normals(z, prob)
-        if check:
-            check("normals", N, dz)
+            with tracing.span("srps.normals"):
+                N, dz = srps.depth_normals(z, prob)
+                if check:
+                    check("normals", N, dz)
         state = srps.SRPSState(
             z=z, rho=rho, s=s, N=N, dz=dz, energy=energy,
             last_energy=state.energy, iteration=state.iteration + 1,
