@@ -9,6 +9,15 @@ falls back to the CPU or to a plain version):
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels from ``srmeetsps_cuda_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once;
+2b. the inpaint's Jacobi kernel (``csrc/inpaint.cu``) against its plain
+   PyTorch loop on the card at the LR grids 480 x 640 and 544 x 960, 512
+   sweeps, with 5% of the pixels holes and with the benchmark's one 4 x 6
+   hole: bit for bit, ms per 512 sweeps of the kernel and of the loop in
+   turns, the launches of one relaxation (ceil(512 / K), K as the library
+   reports it) and of the whole inpaint (pyramid seed and passes, from the
+   profiler), and ptxas's registers and spills of ``jacobi_pass``; the
+   later phases count its launches beside the CG kernels' (``inpaint``,
+   ceil(sweeps / K) a capture prepared);
 3. each kernel against its plain PyTorch version on the card, on depth
    operators built by the port from a seeded Lambertian dataset: the C
    planes, iteration counts, x after 2 and 12 iterations and the tracked
@@ -189,6 +198,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -433,6 +443,128 @@ def launch_summary(kernel: str, form, infos: dict, sf: int) -> tuple:
             "local_bytes": info["local_bytes"], "ptxas": px,
             "stream_planes": planes}
     return "; ".join(texts), fields
+
+
+INPAINT_GRIDS = ((480, 640), (544, 960))
+INPAINT_SWEEPS = 512
+
+
+def inpaint_ptxas() -> dict:
+    """Registers, spill bytes and static shared memory of ``jacobi_pass``
+    (``csrc/inpaint.cu``) from nvcc's ``-Xptxas -v`` report."""
+    from srmeetsps_cuda_tpu_torch import native
+
+    out, cur = {}, None
+    for line in native.build_log("inpaint").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for |$)", line)
+        if m:
+            cur = "jacobi_pass" if "jacobi_pass" in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out.setdefault(cur, {})["shared_bytes"] = int(m.group(1))
+    return out
+
+
+def inpaint_inputs(h: int, w: int, pattern: str, device):
+    """(u0, img, known_b) of the inpaint on a seeded depth of ``h`` x ``w``:
+    ``dense`` holes at 5% of the pixels, or the ``bench``mark's one 4 x 6
+    hole (``bench_torch/data.py``'s frame 0)."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.pre import inpaint as ik
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(h * w)
+    img = 800.0 + 50.0 * torch.rand(h, w, generator=gen, device=device)
+    if pattern == "dense":
+        holes = torch.rand(h, w, generator=gen, device=device) < 0.05
+    else:
+        holes = torch.zeros(h, w, dtype=torch.bool, device=device)
+        holes[10:14, 20:26] = True
+    known = 1.0 - holes.to(torch.float32)
+    known_b = known > 0
+    return torch.where(known_b, img, ik.pyramid_fill(img, known)), img, known_b
+
+
+def inpaint_vs_plain(label, dev) -> dict:
+    """Phase 2b on ``dev``. Returns the kernel's JSON entry."""
+    import torch
+
+    from srmeetsps_cuda_tpu_torch.pre import inpaint as ik
+
+    n = INPAINT_SWEEPS
+    k = ik.sweeps_per_pass()
+    passes = inpaint_passes(1, n)
+    entry = {"name": "inpaint", "sweeps": n, "k": k, "grids": {}}
+    for h, w in INPAINT_GRIDS:
+        for pattern in ("dense", "bench"):
+            u, img, known_b = inpaint_inputs(h, w, pattern, dev)
+            want = ik.relax_plain(u, img, known_b, n)
+            before = ik.relax_cuda.launches
+            got = ik.relax_cuda(u.clone(), known_b, n)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"inpaint {h}x{w} {pattern}: {int((got != want).sum())} "
+                    "pixels differ from the plain loop")
+            launched = ik.relax_cuda.launches - before
+            if launched != passes:
+                raise AssertionError(f"inpaint: {launched} launches for {n} "
+                                     "sweeps")
+            plain = lambda: ik.relax_plain(u, img, known_b, n)  # noqa: E731
+            kernel = lambda: ik.relax_cuda(u.clone(), known_b, n)  # noqa: E731
+            ms = {"plain": [cuda_ms(plain, 2)], "kernel": []}
+            ms["kernel"] += [cuda_ms(kernel, 20), cuda_ms(kernel, 20)]
+            ms["plain"].append(cuda_ms(plain, 2))
+            holes = ~known_b
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                ik.inpaint_diffusion(img, holes, iters=n)
+                torch.cuda.synchronize()
+            kernels = sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and "memcpy" not in e.name.lower()
+                          and "memset" not in e.name.lower())
+            n_holes = int(holes.sum())
+            # 9 operations a hole a sweep (7 adds, 2 products); u, the mask
+            # and the result once each.
+            t_ops = 9 * n * n_holes / F32_FLOPS_PER_S
+            t_bytes = 9 * h * w / HBM_BYTES_PER_S
+            bound_ms = 1e3 * max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            speedup = statistics.median(ms["plain"]) / statistics.median(
+                ms["kernel"])
+            print(f"[{label}] inpaint {h}x{w} {pattern} ({n_holes} holes): "
+                  f"{n} sweeps bit-equal to the plain loop; ms per {n} "
+                  f"sweeps in turns plain {ms['plain'][0]:.3f}, kernel "
+                  f"{ms['kernel'][0]:.4f} / {ms['kernel'][1]:.4f}, plain "
+                  f"{ms['plain'][1]:.3f} ({speedup:.0f}x); bound "
+                  f"{bound_ms:.5f} ms ({by}); "
+                  f"{passes} launches per relaxation, {kernels} kernels in "
+                  "the whole inpaint", flush=True)
+            entry["grids"][f"{h}x{w} {pattern}"] = {
+                "holes": n_holes, "ms": ms,
+                "bound_ms": bound_ms, "kernels_in_inpaint": kernels}
+    entry["ptxas"] = report = inpaint_ptxas()
+    print(f"[{label}] inpaint ptxas: " + "; ".join(
+        f"{inst}: {r.get('registers')} registers, {r.get('spill_stores')} / "
+        f"{r.get('spill_loads')} B spill stores / loads, "
+        f"{r.get('shared_bytes')} B static shared" for inst, r in
+        sorted(report.items())), flush=True)
+    return entry
 
 
 def gpu_label() -> str:
@@ -1535,7 +1667,10 @@ def kernel_counters():
     host_r0`` those given their residual; ``shard_cg persistent`` every
     persistent row-shard launch (one per sharded CG solve), ``... jacobi``
     and ``... cgs`` those of the Jacobi and CGS forms; the other ``shard_cg
-    ...`` the launches of each per-step row-shard kernel, one per shard."""
+    ...`` the launches of each per-step row-shard kernel, one per shard;
+    ``inpaint`` the launches of the inpaint's Jacobi kernel, ceil(sweeps /
+    K) for each capture prepared."""
+    from srmeetsps_cuda_tpu_torch.pre import inpaint as ik
     from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
     from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
     from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
@@ -1556,7 +1691,8 @@ def kernel_counters():
             "shard_cg sweep_a": (sk.step_a, "launches"),
             "shard_cg sweep_b": (sk.step_b, "launches"),
             "shard_cg sweep_b jacobi": (sk.step_b, "jacobi_launches"),
-            "shard_cg cgs_sweep": (sk.cgs_step, "launches")}
+            "shard_cg cgs_sweep": (sk.cgs_step, "launches"),
+            "inpaint": (ik.relax_cuda, "launches")}
 
 
 def reset_counts():
@@ -1569,12 +1705,22 @@ def read_counts() -> dict:
             for k, (obj, attr) in kernel_counters().items()}
 
 
-def expected_counts(n: int, cli_extra=(), operator: str = "stencil") -> dict:
+def inpaint_passes(captures: int, sweeps: int = 512) -> int:
+    """The inpaint kernel's launches for ``captures`` captures prepared
+    with ``sweeps`` sweeps each (512, ``SolverConfig``'s default)."""
+    from srmeetsps_cuda_tpu_torch.pre import inpaint as ik
+
+    return captures * -(-sweeps // ik.sweeps_per_pass())
+
+
+def expected_counts(n: int, cli_extra=(), operator: str = "stencil",
+                    captures: int = 0) -> dict:
     """The counts of ``n`` depth solves of a run with ``cli_extra`` (or the
-    same options of a ``SolverConfig``) and ``cg_operator``: Jacobi runs the
-    stencil CG in a Jacobi form, whatever the --cg-variant, and the direct
-    CG its PCG; the CGS variant without Jacobi runs the CGS kernel for the
-    stencil and the direct operator (depth_cg's routing)."""
+    same options of a ``SolverConfig``) and ``cg_operator``, which prepared
+    ``captures`` captures at 512 sweeps: Jacobi runs the stencil CG in a
+    Jacobi form, whatever the --cg-variant, and the direct CG its PCG; the
+    CGS variant without Jacobi runs the CGS kernel for the stencil and the
+    direct operator (depth_cg's routing)."""
     jacobi = "--jacobi" in cli_extra
     cgs = "cgs" in cli_extra and not jacobi and operator != "direct_host_r0"
     stencil = operator == "stencil" and not cgs
@@ -1585,7 +1731,8 @@ def expected_counts(n: int, cli_extra=(), operator: str = "stencil") -> dict:
             "direct_cg": n if direct else 0,
             "direct_cg jacobi": n if direct and jacobi else 0,
             "direct_cg host_r0": n if operator == "direct_host_r0" else 0,
-            **shard_counts(0, 0, 0, "std")}
+            **shard_counts(0, 0, 0, "std"),
+            "inpaint": inpaint_passes(captures)}
 
 
 def shard_counts(n: int, shards: int, cap: int, form: str,
@@ -1644,7 +1791,7 @@ def main_path(label, tmp, path, data, z_true, cli_extra=()):
     m = data.mask != 0
     if final["z"].shape != (int(m.sum()),) or not np.all(np.isfinite(z)):
         raise AssertionError("final depth is not finite / of the mask's size")
-    if launches != expected_counts(n_it, cli_extra):
+    if launches != expected_counts(n_it, cli_extra, captures=1):
         raise AssertionError(f"kernel runs {launches} for {n_it} outer "
                              f"iterations with {cli_extra}")
     # The scaled Jacobi form stops on <r', r'>, which f32 can bring under
@@ -1761,13 +1908,15 @@ def batched_path(label, tmp, paths, solo, padded, grid, cli_extra=()):
                                  f"{len(want)} outer iterations")
         check_close(f"padded lane vs native solo (const {const})",
                     stream[b][:k], want[:k], 0, energy_bound(want[0], const))
-    if n_stream != expected_counts(sum(map(len, stream)), cli_extra):
+    if n_stream != expected_counts(sum(map(len, stream)), cli_extra,
+                                   captures=len(paths)):
         raise AssertionError(f"stream: launches {n_stream} for "
                              f"{list(map(len, stream))} iterations")
     if lock != stream:
         raise AssertionError(f"lockstep lanes {lock} differ from stream "
                              f"lanes {stream}")
-    if n_lock != expected_counts(max(map(len, lock)), cli_extra):
+    if n_lock != expected_counts(max(map(len, lock)), cli_extra,
+                                 captures=len(paths)):
         raise AssertionError(f"lockstep: launches {n_lock} for "
                              f"{max(map(len, lock))} outer iterations")
     B = len(paths)
@@ -1904,7 +2053,7 @@ def api_solve(label, data, z_true, cfg, ref=None, const=None, hold=True,
     if not stop_rule_held(energies, cfg.tolerance, cfg.max_iterations):
         raise AssertionError(f"{what}: stopping rule violated: {energies}")
     if launches != expected_counts(0 if plain else n_it, cli_extra_of(cfg),
-                                   cfg.cg_operator):
+                                   cfg.cg_operator, captures=1):
         raise AssertionError(f"{what}: kernel runs {launches} for {n_it} "
                              "outer iterations")
     # Only a Jacobi form's stop test can come under tol^2 = 1e-18 in f32.
@@ -2473,7 +2622,7 @@ def cli_sharded(label, tmp, path, ref, const):
     if not stop_rule_held(energies, 5e-3, 10):
         raise AssertionError(f"--sharded 4: stopping rule violated: "
                              f"{energies}")
-    want = dict(expected_counts(0), **shard_counts(
+    want = dict(expected_counts(0, captures=1), **shard_counts(
         n_it, shards, 100, "std", "persistent" if shards == 1 else "steps"))
     if launches != want:
         raise AssertionError(f"--sharded 4: kernel runs {launches}, "
@@ -2575,6 +2724,18 @@ def bench_run(label, mode: str, timeout: int) -> tuple:
     if not launches or any(n["stencil_cg"] < 1 for n in launches.values()):
         raise AssertionError(f"bench {name}: stencil_cg launches per "
                              f"section {launches}")
+    # Every capture prepared launches the inpaint kernel: the device
+    # metrics prepare one at 512 sweeps, the accuracy section three at 64;
+    # the other sections prepare at 512 sweeps, one mode's at least once.
+    inpaint = {s: n["inpaint"] for s, n in launches.items()}
+    want = {"device_metrics": inpaint_passes(1),
+            "accuracy": inpaint_passes(3, 64)}
+    if (any(inpaint[s] != n for s, n in want.items() if s in inpaint)
+            or any(n % inpaint_passes(1) for s, n in inpaint.items()
+                   if s not in want)
+            or not sum(inpaint.values())):
+        raise AssertionError(f"bench {name}: inpaint launches per section "
+                             f"{inpaint}")
     if name == "main" and launches["device_metrics"]["direct_cg"] < 1:
         raise AssertionError(f"bench: the device metrics launched no "
                              f"direct_cg: {launches}")
@@ -2734,7 +2895,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    kernels = ["stencil_cg", "cgs_cg", "direct_cg", "shard_cg"]
+    kernels = ["stencil_cg", "cgs_cg", "direct_cg", "shard_cg", "inpaint"]
     fresh = [k for k in kernels if not native.library_path(k).exists()]
     native.build_all(kernels)
     for k in kernels:
@@ -2744,6 +2905,7 @@ def main() -> int:
           flush=True)
 
     dev = torch.device("cuda")
+    inpaint_entry = inpaint_vs_plain(label, dev)
     grids = [(960, 1280, 2), (240, 320, 1), (480, 640, 4)]
     # h and w multiples of neither block's tile (4 x 256, 16 x 32): partial
     # tiles on both edges.
@@ -2810,6 +2972,7 @@ def main() -> int:
         a, a_data, a_true = write_dataset(tmp, 960, 1280, seed=0)
         main = main_path(label, tmp, a, a_data, a_true)
         entry["launches"] = main["launches"]["stencil_cg"]
+        inpaint_entry["launches"] = main["launches"]["inpaint"]
         small_input_vs_cpu(label)
 
         b, b_data, b_true = write_dataset(tmp, 944, 1264, seed=1)
@@ -3023,7 +3186,8 @@ def main() -> int:
                                   for f, r in shard_runs.items()},
                           {f: r["steps"]["launches"]
                            for f, r in shard_runs.items()},
-                          big, [(480, 640, 4)])}))
+                          big, [(480, 640, 4)])
+                      + [inpaint_entry]}))
     print(label)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,6 +78,7 @@ from .ops import gradients as gradops
 from .ops.grid import meshgrid_camera
 from .ops.normals import normals_from_depth
 from .parallel import batched
+from .pre import inpaint as ik
 from .runtime.solver import prepare, solve
 from .solve import direct_cg as dc
 from .solve import stencil_cg as sc
@@ -132,7 +133,8 @@ def _note(msg: str) -> None:
 def launch_counts() -> dict:
     """The launches each kernel of the bench's path has made so far."""
     return {"stencil_cg": sc.stencil_cg.launches,
-            "direct_cg": dc.direct_cg.launches}
+            "direct_cg": dc.direct_cg.launches,
+            "inpaint": ik.relax_cuda.launches}
 
 
 def device_label(device: torch.device) -> str:

@@ -32,8 +32,9 @@ Spans (all under ``srps.``, apart from any range the caller opens):
   ``srps.results``, the host reads after the loop.
 
 Counters: ``host_reads`` (each call that waits for the device: a
-tensor's value read on the host, a synchronise), ``h2d_bytes`` and
-``cg_iters``. None of them launches a kernel.
+tensor's value read on the host, a synchronise), ``h2d_bytes``,
+``cg_iters``, and on ``.inpaint`` ``inpaint_passes`` (the launches of
+``csrc/inpaint.cu``). None of them launches a kernel.
 
 :func:`records` and :func:`totals` read the store; :func:`dump` writes
 it as JSON lines (``runtime.solver.profiling`` does, beside the trace).

@@ -36,7 +36,7 @@ def test_conv3_matches_lax_conv(rng):
                                np.asarray(jinp._conv3(x)), **TOL)
 
 
-@pytest.mark.parametrize("shape", [(12, 17), (16, 16)])
+@pytest.mark.parametrize("shape", [(12, 17), (16, 16), (40, 70)])
 def test_inpaint_matches(rng, shape):
     img = rng.random(shape).astype(np.float32) + 1.0
     holes = rng.random(shape) < 0.2
