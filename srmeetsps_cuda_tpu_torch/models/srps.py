@@ -42,8 +42,8 @@ from ..ops.gradients import GradientMasks
 from ..ops.normals import normals_from_depth
 from ..solve.cgs_cg import cgs_cg
 from ..solve.direct_cg import direct_cg
-from ..solve.stencil_cg import (depth_rhs_fields, energy_planes, make_ktw,
-                                stencil_cg)
+from ..solve.stencil_cg import (depth_rhs_fields, energy_planes, jacobi_form,
+                                make_ktw, stencil_cg)
 
 # SolverConfig.cg_operator values: how the depth CG applies M.
 CG_OPERATORS = ("stencil", "direct", "direct_host_r0")
@@ -557,6 +557,16 @@ def depth_cg(z, op: DepthOperator, prob: SRPSProblem, sf: int,
     return z_new, energy, iters
 
 
+def cg_form(sf: int, cfg: SolverConfig) -> str:
+    """The form of the depth CG that :func:`depth_cg` runs: ``"plain"``
+    without Jacobi; with it, the stencil kernel's :func:`jacobi_form` of
+    ``sf`` (``"scaled"`` or ``"pcg"``), or ``"pcg"`` on the direct
+    operators."""
+    if not cfg.jacobi_preconditioner:
+        return "plain"
+    return jacobi_form(sf) if cfg.cg_operator == "stencil" else "pcg"
+
+
 def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
                    cfg: SolverConfig, block=(256, 4)):
     """Warm-started CG depth solve and its energy (devicecalls.cu:636-786):
@@ -564,7 +574,8 @@ def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
     cg_iterations)`` as device tensors."""
     with tracing.span("srps.depth_operator"):
         op = build_depth_operator(prob, mom, rho, dz, cfg.lam)
-    with tracing.span("srps.depth_cg", lanes=1):
+    with tracing.span("srps.depth_cg", lanes=1, sf=int(sf),
+                      form=cg_form(sf, cfg)):
         out = depth_cg(z, op, prob, sf, cfg, block)
         tracing.count("cg_iters", out[2])
     return out

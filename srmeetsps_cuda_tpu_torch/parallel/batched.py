@@ -147,7 +147,8 @@ def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
                                                      states.dz[b], lam))
         with tracing.span("srps.depth_operator", lanes=B):
             op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
-        with tracing.span("srps.depth_cg", lanes=B):
+        with tracing.span("srps.depth_cg", lanes=B, sf=int(sf),
+                          form=srps.cg_form(sf, cfg)):
             z, energy, iters = srps.depth_cg(
                 states.z, op, probs, sf, cfg, block,
                 lanes=list(zip(ops, lanes)))

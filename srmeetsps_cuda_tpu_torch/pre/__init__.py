@@ -43,6 +43,6 @@ def preprocess_depth(z0: torch.Tensor, h: int, w: int,
         mx = torch.where(mx == 0, torch.ones_like(mx), mx)
         zs_f = bilateral_filter(zs / mx, cfg.bilateral_sigma_color,
                                 cfg.bilateral_sigma_space) * mx
-    with tracing.span("srps.prepare.bicubic"):
+    with tracing.span("srps.prepare.bicubic", factor=h // zs_f.shape[-2]):
         z_init = resize_bicubic(zs_f, h, w)
     return zs_f, z_init

@@ -20,14 +20,16 @@ Spans (all under ``srps.``, apart from any range the caller opens):
 
 * ``srps.prepare``, one per capture, and inside it ``.upload`` (each move
   of a capture's host array to the device; counts ``h2d_bytes``),
-  ``.mean``, ``.inpaint``, ``.bilateral``, ``.bicubic``, ``.pad``,
-  ``.problem`` (``build_problem``) and ``.state`` (``init_state``);
+  ``.mean``, ``.inpaint``, ``.bilateral``, ``.bicubic`` (attr ``factor``,
+  the upsample's), ``.pad``, ``.problem`` (``build_problem``) and
+  ``.state`` (``init_state``);
 * ``srps.iteration``, one outer iteration (``lanes`` of a lockstep
   batch), and inside it ``srps.lighting``, ``srps.albedo``,
-  ``srps.depth_operator``, ``srps.depth_cg`` (counts ``cg_iters``, the
-  kernel's own per-lane count, kept on the device until the store is
-  read) and ``srps.normals``; a lockstep batch's per-lane phases carry
-  ``lane``;
+  ``srps.depth_operator``, ``srps.depth_cg`` (attrs ``lanes``, ``sf`` and
+  ``form``, the CG's Jacobi form: ``"plain"``, ``"scaled"`` or ``"pcg"``;
+  counts ``cg_iters``, the kernel's own per-lane count, kept on the device
+  until the store is read) and ``srps.normals``; a lockstep batch's
+  per-lane phases carry ``lane``;
 * ``srps.stop``, the stop test between outer iterations, and
   ``srps.results``, the host reads after the loop.
 

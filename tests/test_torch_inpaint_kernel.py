@@ -26,9 +26,9 @@ from srmeetsps_cuda_tpu_torch.pre import inpaint as ik
 # CPU model; the card tests read K from the kernel's library.
 TILE, K = 32, 16
 # The LR grids of the benchmark's cells (960 x 1280 and its mixed crops,
-# 1088 x 1920 at sf 2) and two odd ones.
+# 1088 x 1920 at sf 2; 960 x 1280 at sf 4) and two odd ones.
 LR_SHAPES = [(480, 640), (544, 960), (456, 608), (448, 576), (432, 544),
-             (97, 131), (1, 7)]
+             (240, 320), (97, 131), (1, 7)]
 PATTERNS = ["random", "border", "large", "none", "all"]
 
 

@@ -183,7 +183,7 @@ def test_lockstep_spans_and_counts(captures, tmp_path, monkeypatch):
              for p in ("srps.lighting", "srps.albedo",
                        "srps.depth_operator")]
             + [("srps.depth_operator", {"lanes": B}),
-               ("srps.depth_cg", {"lanes": B})]
+               ("srps.depth_cg", {"lanes": B, "sf": 2, "form": "plain"})]
             + [("srps.normals", {"lane": b}) for b in range(B)])
     # A capture's request id covers its preparation and its lane's phases;
     # the batch's own spans carry none.
