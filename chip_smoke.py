@@ -97,6 +97,14 @@ falls back to the CPU or to a plain version):
    Jacobi) with at most one outer iteration more or less; then the phase-4b
    lanes through ``solve_batch`` with ``"direct"``: lockstep equals stream,
    one lane-batched launch per outer iteration;
+4m. the outer iteration's glue from CUDA graphs (``models/glue.py``): the
+   phase-4 file's fused solve through ``runtime.solver.solve`` and the
+   phase-4b lanes' lockstep solve, each with the graphs and with the
+   engagement rule forced false, bit for bit equal, with the launches of
+   the CG and inpaint kernels counted as expected, the ``glue_replays``
+   counter at every iteration but each solve's first two (the eager and the
+   capture one; B lanes each in lockstep), and ms per outer iteration of
+   both in turns;
 4i. bench.py's 4K configuration (2176 x 3840, sf = 2, n = 8, c = 3) through
    ``runtime.solver.solve`` with ``"direct"`` and with ``"stencil"``, in
    turns: a finite depth, the stopping rule, outer iterations, ms per
@@ -2691,6 +2699,110 @@ def api_lanes(label, datas, cfg):
     return n_l
 
 
+def glue_graphs_phase(label, datas) -> dict:
+    """Phase 4m: the outer iteration's glue replayed from CUDA graphs
+    (``models/glue.py``). The fused solve of ``datas[0]`` through
+    ``runtime.solver.solve`` and the lockstep solve of all of ``datas``
+    (zero-padded to their common grid), each with the graphs and with the
+    engagement rule forced false, under a profiler: bit for bit the same z,
+    rho, s, N, dz and energies; the kernel launches of ``expected_counts``
+    both ways; ``glue_replays`` every iteration but each solve's first two
+    (B lanes each in lockstep) and none eager, the ``srps.iteration``
+    spans' ``glue`` attribute ``"eager"``, ``"capture"``, then
+    ``"replay"``. Then ms per outer iteration of each route with and
+    without the graphs, untraced, in turns (graphs, eager, eager,
+    graphs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from srmeetsps_cuda_tpu_torch import trace as tracing
+    from srmeetsps_cuda_tpu_torch.config import RuntimeConfig, SolverConfig
+    from srmeetsps_cuda_tpu_torch.models import glue
+    from srmeetsps_cuda_tpu_torch.parallel import batched
+    from srmeetsps_cuda_tpu_torch.runtime import solver
+
+    dev = torch.device("cuda")
+    cfg = SolverConfig()
+    H = max(d.mask.shape[0] for d in datas)
+    W = max(d.mask.shape[1] for d in datas)
+    rule = glue.engages
+
+    def fused():
+        final, metrics = solver.solve(datas[0], cfg, RuntimeConfig(
+            fused_outer_loop=True), device=dev, verbose=False)
+        return [final], [[m["energy"] for m in metrics if "energy" in m]]
+
+    def lockstep():
+        pairs = [solver.prepare(d, cfg, dev, pad_to=(H, W)) for d in datas]
+        finals, traces = batched.solve_batch(
+            [s for _, s in pairs], [p for p, _ in pairs], 2, cfg,
+            mode="lockstep")
+        return finals, [t[:int(f.iteration)].tolist()
+                        for f, t in zip(finals, traces)]
+
+    def run(fn, graphs: bool, traced: bool):
+        glue.engages = rule if graphs else (lambda device, check: False)
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with (profile(activities=[ProfilerActivity.CPU]) if traced
+                  else contextlib.nullcontext()):
+                finals, energies = fn()
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            glue.engages = rule
+        its = [r for r in tracing.records() if r["name"] == "srps.iteration"]
+        return {"fields": [[getattr(f, k).cpu() for k in (
+                    "z", "rho", "s", "N", "dz")] for f in finals],
+                "energies": energies, "seconds": dt,
+                "launches": read_counts(),
+                "glue": [r["attrs"]["glue"] for r in its] if traced else None,
+                "replays": sum(r["counts"]["glue_replays"] for r in its)
+                if traced else None}
+
+    out = {}
+    for name, fn in (("fused", fused), ("lockstep", lockstep)):
+        lanes = 1 if name == "fused" else len(datas)
+        on, off = run(fn, True, True), run(fn, False, True)
+        n = max(map(len, on["energies"]))
+        for k in ("energies", "fields"):
+            same = (on[k] == off[k] if k == "energies" else all(
+                torch.equal(a, b) for fa, fb in zip(on[k], off[k])
+                for a, b in zip(fa, fb)))
+            if not same:
+                raise AssertionError(f"{name}: {k} with the glue's graphs "
+                                     "differ from the eager glue's")
+        want = expected_counts(n, captures=lanes)
+        for got in (on, off):
+            if got["launches"] != want:
+                raise AssertionError(f"{name}: launches {got['launches']} "
+                                     f"for {n} outer iterations")
+        modes = ["eager", "capture"] + ["replay"] * (n - 2)
+        if on["glue"] != modes or on["replays"] != lanes * (n - 2):
+            raise AssertionError(f"{name}: glue {on['glue']}, replays "
+                                 f"{on['replays']} for {n} iterations of "
+                                 f"{lanes} lane(s)")
+        if set(off["glue"]) != {"eager"} or off["replays"] != 0:
+            raise AssertionError(f"{name}: the eager run counted "
+                                 f"{off['replays']} replays ({off['glue']})")
+        turns = [run(fn, graphs, False)["seconds"]
+                 for graphs in (True, False, False, True)]
+        ms = [1e3 * t / n for t in turns]
+        out[name] = {"outer_iterations": n, "lanes": lanes,
+                     "glue_replays": on["replays"],
+                     "ms_per_outer_iter": {"graphs": [ms[0], ms[3]],
+                                           "eager": [ms[1], ms[2]]}}
+        print(f"[{label}] glue graphs, {name} solve of {lanes} lane(s) at "
+              f"{H}x{W}: bit-equal to the eager glue over {n} outer "
+              f"iterations, glue {on['glue']}, glue_replays {on['replays']}, "
+              f"launches {on['launches']}; ms/outer-iter in turns graphs "
+              f"{ms[0]:.3f}, eager {ms[1]:.3f}, eager {ms[2]:.3f}, graphs "
+              f"{ms[3]:.3f}", flush=True)
+    return out
+
+
 BENCH = [sys.executable, "-m", "srmeetsps_cuda_tpu_torch.bench"]
 BENCH_NOTE = re.compile(r"^\[bench \+\s*[\d.]+s\] (\S+) done; launches "
                         r"(\{.*\})$", re.M)
@@ -3042,6 +3154,8 @@ def main() -> int:
                            SolverConfig(cg_operator="direct"))
         direct_launches["direct"]["batched"] = {
             "lanes": 4, "launches": n_lock["direct_cg"]}
+        # 4m: the glue's CUDA graphs against the eager glue.
+        glue_graphs_phase(label, [a_data, b_data, c_data, a_data])
 
         # 4f: the batched run with --jacobi, and with --cg-variant cgs too.
         _, n_lock = batched_path(label, tmp, lanes, {a: jac_a}, b, grid,

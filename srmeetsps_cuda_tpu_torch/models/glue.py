@@ -1,0 +1,143 @@
+"""The outer iteration's glue, replayed from CUDA graphs.
+
+The glue is all of an outer iteration but the depth CG's launch: on the
+card some 500 small kernels a lane, each a host launch, around 2.3 ms of
+device work at 960 x 1280. Its shapes are fixed for a whole solve, and it
+reads nothing back to the host, so a solve captures it once and replays
+it:
+
+* the first outer iteration runs eagerly (``"eager"``): it sets up
+  cuBLAS and the caching allocator outside any capture, and its results
+  become the solve's state buffers;
+* the second (``"capture"``) records each half of the glue into a graph
+  and replays it: graph A, lighting, s-moments, albedo and the depth
+  operator, which ends by writing s and rho into the state's buffers;
+  graph B, the normals, which ends by writing N and dz into them. The CG
+  runs between them as the eager call it always is (its cooperative
+  launch is not captured), and its depth is copied into the buffer of z;
+* every later one (``"replay"``) launches the two graphs.
+
+The graphs hold the same kernels in the same order as the eager path, so
+a solve's results are the eager solve's, bit for bit. The state handed on
+from an iteration is made of the buffers, which the next iteration
+overwrites: a caller that keeps an iterate keeps a copy
+(``srps.snapshot``).
+
+The graphs of every solve share one memory pool for the process, so that
+after the first capture a capture finds its memory in the pool. A solve
+frees its graphs (:meth:`Glue.close`) when it ends.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_pools = {}  # device index -> (pool handle, the graph that holds it, ...)
+_streams = {}  # device index -> the capture stream
+
+
+def engages(device: torch.device, check) -> bool:
+    """Whether a solve's glue runs from graphs: on a CUDA device, and
+    without a per-phase ``check`` (a host read after each phase)."""
+    return device.type == "cuda" and check is None
+
+
+def for_solve(device: torch.device, check=None):
+    """A :class:`Glue` for a solve on ``device``, or None where the glue
+    runs eagerly (:func:`engages`)."""
+    return Glue(device) if engages(device, check) else None
+
+
+def _pool(device: torch.device):
+    """The process's graph memory pool on ``device``. A pool lives while a
+    graph captured into it does (in the caching allocators of both device
+    and pinned host memory): once the last is freed, a capture into the
+    pool fails. So the pool is made with a graph of one kernel that the
+    process keeps and never replays."""
+    idx = _index(device)
+    got = _pools.get(idx)
+    if got is None:
+        pool = torch.cuda.graph_pool_handle()
+        keep = torch.cuda.CUDAGraph()
+        cell = torch.zeros(1, device=device)
+        with torch.cuda.stream(_stream(device)):
+            keep.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                cell.add_(1.0)
+            finally:
+                keep.capture_end()
+        got = _pools[idx] = (pool, keep, cell)
+    return got[0]
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _stream(device: torch.device) -> torch.cuda.Stream:
+    idx = _index(device)
+    stream = _streams.get(idx)
+    if stream is None:
+        stream = _streams[idx] = torch.cuda.Stream(idx)
+    return stream
+
+
+class Glue:
+    """The glue graphs of one solve. :attr:`mode` is what the next outer
+    iteration does; :meth:`run` captures a half of the glue or replays
+    it; :meth:`step` ends an iteration."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.warm = False
+        self.graphs = {}  # name -> (CUDAGraph, what the capture returned)
+
+    @property
+    def mode(self) -> str:
+        if not self.warm:
+            return "eager"
+        return "replay" if len(self.graphs) == 2 else "capture"
+
+    def run(self, name: str, fn):
+        """Replay the graph ``name``, capturing ``fn`` into it first if it
+        has none; returns what ``fn`` returned at the capture (tensors the
+        replays write)."""
+        got = self.graphs.get(name)
+        with torch.cuda.device(self.device):
+            if got is None:
+                got = self.graphs[name] = self._capture(fn)
+            got[0].replay()
+        return got[1]
+
+    def _capture(self, fn):
+        graph = torch.cuda.CUDAGraph()
+        pool = _pool(self.device)
+        main = torch.cuda.current_stream(self.device)
+        side = _stream(self.device)
+        side.wait_stream(main)
+        # cuBLAS holds a workspace (32 MiB on an H100) for each stream it
+        # has run on; the capture's would be held beside the caller's.
+        # Dropping the held ones before the capture lets it make its own
+        # in the pool, and after it leaves that one to the graph alone, so
+        # that the device holds one workspace at a time, as the eager glue
+        # does. The graphs of a solve run one after another on one stream.
+        torch._C._cuda_clearCublasWorkspaces()
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        torch._C._cuda_clearCublasWorkspaces()
+        main.wait_stream(side)
+        return graph, out
+
+    def step(self) -> None:
+        """End an outer iteration."""
+        self.warm = True
+
+    def close(self) -> None:
+        """Free the graphs and their outputs (their memory stays in the
+        pool for the next solve's capture)."""
+        self.graphs.clear()

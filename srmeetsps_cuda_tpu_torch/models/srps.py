@@ -17,6 +17,10 @@ devicecalls.cu). The structure is the JAX package's:
   mask-gated matvec (``solve/direct_cg.py``): the hand-written CUDA kernel
   on a CUDA device, its plain PyTorch version on the CPU.
 
+On a CUDA device :func:`solve_fused` replays the glue of each outer
+iteration, all but the depth CG's launch, from two CUDA graphs that the
+solve captures at its second iteration (``models/glue.py``).
+
 State lives on dense ``(h, w)`` grids zeroed outside the mask. Contractions
 run in full float32 (``device.set_precision``), as the JAX package's
 ``Precision.HIGHEST`` dots. Under ``image_dtype="bfloat16"`` the image
@@ -44,6 +48,7 @@ from ..solve.cgs_cg import cgs_cg
 from ..solve.direct_cg import direct_cg
 from ..solve.stencil_cg import (depth_rhs_fields, energy_planes, jacobi_form,
                                 make_ktw, stencil_cg)
+from . import glue
 
 # SolverConfig.cg_operator values: how the depth CG applies M.
 CG_OPERATORS = ("stencil", "direct", "direct_host_r0")
@@ -574,6 +579,12 @@ def estimate_depth(prob: SRPSProblem, mom: SMoments, rho, dz, z, sf: int,
     cg_iterations)`` as device tensors."""
     with tracing.span("srps.depth_operator"):
         op = build_depth_operator(prob, mom, rho, dz, cfg.lam)
+    return solve_depth(z, op, prob, sf, cfg, block)
+
+
+def solve_depth(z, op: DepthOperator, prob: SRPSProblem, sf: int,
+                cfg: SolverConfig, block=(256, 4)):
+    """:func:`depth_cg` of one problem in its ``srps.depth_cg`` span."""
     with tracing.span("srps.depth_cg", lanes=1, sf=int(sf),
                       form=cg_form(sf, cfg)):
         out = depth_cg(z, op, prob, sf, cfg, block)
@@ -598,28 +609,83 @@ def check_finite(phase: str, *tensors) -> None:
 
 
 def srps_iteration(state: SRPSState, prob: SRPSProblem, sf: int,
-                   cfg: SolverConfig, block=(256, 4), check=None) -> SRPSState:
+                   cfg: SolverConfig, block=(256, 4), check=None,
+                   graphs=None) -> SRPSState:
     """Lighting -> albedo -> depth -> normals (SRPS.cu:276-335 body).
     ``check(phase, *outputs)`` (:func:`check_finite`) sees each phase's
-    outputs."""
+    outputs. With ``graphs`` (a solve's ``glue.Glue``) past its eager first
+    iteration, the lighting-to-operator half and the normals run as its
+    graphs around the CG, and the state returned is ``state``'s tensors
+    written in place."""
     check = check or (lambda *_: None)
-    with tracing.span("srps.iteration"):
-        with tracing.span("srps.lighting"):
-            s = estimate_lighting(prob, state.rho, state.N, state.s)
-            check("lighting", s)
-        with tracing.span("srps.albedo"):
-            mom = s_moments(prob, s)
-            rho = estimate_albedo(prob, mom, state.N, state.rho)
-            check("s-moments and albedo", mom.G, mom.J, rho)
-        z, energy, cg_iters = estimate_depth(prob, mom, rho, state.dz,
-                                             state.z, sf, cfg, block)
-        check("depth", z, energy)
-        with tracing.span("srps.normals"):
-            N, dz = depth_normals(z, prob)
-            check("normals", N, dz)
+    mode = "eager" if graphs is None else graphs.mode
+    with tracing.span("srps.iteration", glue=mode):
+        tracing.count("glue_replays", int(mode == "replay"))
+        if mode == "eager":
+            s, rho, op = _lighting_to_operator(state, prob, cfg, check)
+            z, energy, cg_iters = solve_depth(state.z, op, prob, sf, cfg,
+                                              block)
+            check("depth", z, energy)
+            del op  # not needed past the CG
+            N, dz = _normals(z, prob, check)
+        else:
+            (op,) = graphs.run("a", lambda: write_into(
+                state, ("s", "rho"),
+                _lighting_to_operator(state, prob, cfg, check)))
+            z, energy, cg_iters = solve_depth(state.z, op, prob, sf, cfg,
+                                              block)
+            state.z.copy_(z)
+            graphs.run("b", lambda: write_into(
+                state, ("N", "dz"), _normals(state.z, prob, check)))
+            z, rho, s, N, dz = state.z, state.rho, state.s, state.N, state.dz
+    if graphs is not None:
+        graphs.step()
     return SRPSState(z=z, rho=rho, s=s, N=N, dz=dz, energy=energy,
                      last_energy=state.energy,
                      iteration=state.iteration + 1, cg_iters=cg_iters)
+
+
+def _lighting_to_operator(state: SRPSState, prob: SRPSProblem,
+                          cfg: SolverConfig, check):
+    """The glue before the CG: ``(s, rho, op)``."""
+    with tracing.span("srps.lighting"):
+        s = estimate_lighting(prob, state.rho, state.N, state.s)
+        check("lighting", s)
+    with tracing.span("srps.albedo"):
+        mom = s_moments(prob, s)
+        rho = estimate_albedo(prob, mom, state.N, state.rho)
+        check("s-moments and albedo", mom.G, mom.J, rho)
+    with tracing.span("srps.depth_operator"):
+        op = build_depth_operator(prob, mom, rho, state.dz, cfg.lam)
+    return s, rho, op
+
+
+def _normals(z, prob: SRPSProblem, check):
+    with tracing.span("srps.normals"):
+        N, dz = depth_normals(z, prob)
+        check("normals", N, dz)
+    return N, dz
+
+
+def write_into(state, fields, values, stopped=None):
+    """Write the first ``len(fields)`` of ``values`` into ``state``'s
+    tensors of those names (of a lockstep batch, but for the lanes that
+    have ``stopped``); returns the rest of ``values``."""
+    for name, v in zip(fields, values):
+        old = getattr(state, name)
+        if stopped is None:
+            old.copy_(v)
+        else:
+            keep = stopped.reshape((-1,) + (1,) * (v.dim() - 1))
+            torch.where(keep, old, v, out=old)
+    return values[len(fields):]
+
+
+def snapshot(state):
+    """A copy of ``state`` whose tensors no later outer iteration writes:
+    what a caller of :func:`solve_fused` keeps of an iterate."""
+    return type(state)(*(v.clone() if isinstance(v, torch.Tensor) else v
+                         for v in state))
 
 
 def should_stop(state: SRPSState, cfg: SolverConfig) -> torch.Tensor:
@@ -638,18 +704,27 @@ def solve_fused(state: SRPSState, prob: SRPSProblem, sf: int,
                 check=None):
     """The outer loop with one host read per iteration (the stop test).
     Returns the final state and the energy trace (NaN-padded, length
-    ``max_iterations + 2``). ``on_iteration(state)`` sees every iterate;
-    ``check`` is :func:`srps_iteration`'s."""
+    ``max_iterations + 2``). ``on_iteration(state)`` sees every iterate,
+    whose z, rho, s, N and dz the next iteration may overwrite (the glue's
+    graphs write them in place): it keeps a :func:`snapshot`. ``check``
+    is :func:`srps_iteration`'s; on a CUDA device without it the glue
+    runs from graphs (``glue.engages``)."""
     trace = torch.full((cfg.max_iterations + 2,), math.nan,
                        dtype=torch.float32, device=prob.mask.device)
+    graphs = glue.for_solve(prob.mask.device, check)
     st = state
-    while True:
-        with tracing.span("srps.stop"):
-            if st.iteration and tracing.read(bool, should_stop(st, cfg)):
-                break
-        st = srps_iteration(st, prob, sf, cfg, block, check)
-        if st.iteration - 1 < trace.shape[0]:
-            trace[st.iteration - 1] = st.energy
-        if on_iteration is not None:
-            on_iteration(st)
+    try:
+        while True:
+            with tracing.span("srps.stop"):
+                if st.iteration and tracing.read(bool, should_stop(st, cfg)):
+                    break
+            st = srps_iteration(st, prob, sf, cfg, block, check,
+                                graphs=graphs)
+            if st.iteration - 1 < trace.shape[0]:
+                trace[st.iteration - 1] = st.energy
+            if on_iteration is not None:
+                on_iteration(st)
+    finally:
+        if graphs is not None:
+            graphs.close()
     return st, trace

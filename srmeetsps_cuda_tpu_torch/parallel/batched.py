@@ -18,9 +18,11 @@ Lighting, s-moments, albedo, the depth operator, the depth energy of the
 CGS variant and the normals run lane by lane through the single-problem
 functions of ``models/srps.py``, on views of the stacked state. With the
 CG kernel's lanes bit for bit equal to its B = 1 launches, this keeps each
-lockstep lane bit-identical to its solo solve on the card. Stacked tensors
-would merge those ~250 small operations per lane into ~250 per batch; that
-is later work.
+lockstep lane bit-identical to its solo solve on the card. On a CUDA
+device that glue, all lanes', is captured once a solve as two CUDA graphs
+around the CG's launch and replayed (``models/glue.py``), the frozen lanes
+kept inside the graphs. Stacked tensors would merge those ~250 small
+operations per lane into ~250 per batch; that is later work.
 
 Stacked containers are the single-problem NamedTuples with a leading lane
 axis on every tensor; the host scalars ``fx``, ``fy`` (problem) and
@@ -35,7 +37,7 @@ import torch
 
 from .. import trace as tracing
 from ..config import SolverConfig
-from ..models import srps
+from ..models import glue, srps
 from ..ops.gradients import GradientMasks
 
 
@@ -123,52 +125,88 @@ def solve_batch(states, probs, sf: int, cfg: SolverConfig, mode: str = "auto",
 
 
 def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
-                        lanes: list, sf: int, cfg: SolverConfig, block):
+                        lanes: list, sf: int, cfg: SolverConfig, block,
+                        graphs=None, stopped=None):
     """One outer iteration of every lane; the depth CG of all lanes is one
     launch (``srps.depth_cg`` on the stacked operator). Lane b's phases
-    are spans with ``lane=b``."""
-    lam = cfg.lam
+    are spans with ``lane=b``. With ``graphs`` (the solve's
+    ``glue.Glue``) past its eager first iteration, the glue of all lanes
+    runs as its two graphs around the CG, each ending by writing its
+    results into ``states``' tensors, frozen where ``stopped`` (a lane
+    that has stopped keeps its values, as :func:`_freeze` keeps them)."""
     B = len(lanes)
-    with tracing.span("srps.iteration", lanes=B):
-        ss, moms, rhos, ops = [], [], [], []
-        for b, pb in enumerate(lanes):
-            with tracing.span("srps.lighting", lane=b):
-                s = srps.estimate_lighting(pb, states.rho[b], states.N[b],
-                                           states.s[b])
-            with tracing.span("srps.albedo", lane=b):
-                mom = srps.s_moments(pb, s)
-                rho = srps.estimate_albedo(pb, mom, states.N[b],
-                                           states.rho[b])
-            ss.append(s)
-            moms.append(mom)
-            rhos.append(rho)
-            with tracing.span("srps.depth_operator", lane=b):
-                ops.append(srps.build_depth_operator(pb, mom, rho,
-                                                     states.dz[b], lam))
-        with tracing.span("srps.depth_operator", lanes=B):
-            op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
+    mode = "eager" if graphs is None else graphs.mode
+    with tracing.span("srps.iteration", lanes=B, glue=mode):
+        tracing.count("glue_replays", B if mode == "replay" else 0)
+        if mode == "eager":
+            s, rho, ops, op = _lanes_to_operator(states, lanes, cfg.lam)
+        else:
+            ops, op = graphs.run("a", lambda: srps.write_into(
+                states, ("s", "rho"),
+                _lanes_to_operator(states, lanes, cfg.lam), stopped))
         with tracing.span("srps.depth_cg", lanes=B, sf=int(sf),
                           form=srps.cg_form(sf, cfg)):
             z, energy, iters = srps.depth_cg(
                 states.z, op, probs, sf, cfg, block,
                 lanes=list(zip(ops, lanes)))
             tracing.count("cg_iters", iters)
-        normals = []
-        for b, pb in enumerate(lanes):
-            with tracing.span("srps.normals", lane=b):
-                normals.append(srps.depth_normals(z[b], pb))
-        N, dz = (torch.stack(t) for t in zip(*normals))
-        del normals  # the lanes' own N and dz, before the stacks below
-        return srps.SRPSState(
-            z=z, rho=torch.stack(rhos), s=torch.stack(ss), N=N, dz=dz,
-            energy=energy, last_energy=states.energy,
-            iteration=states.iteration + 1, cg_iters=iters)
+        del ops, op  # not needed past the CG
+        if mode == "eager":
+            N, dz = _lanes_normals(z, lanes)
+        else:
+            srps.write_into(states, ("z",), (z,), stopped)
+            graphs.run("b", lambda: srps.write_into(
+                states, ("N", "dz"), _lanes_normals(states.z, lanes),
+                stopped))
+            z, rho, s, N, dz = (states.z, states.rho, states.s, states.N,
+                                states.dz)
+    if graphs is not None:
+        graphs.step()
+    return srps.SRPSState(
+        z=z, rho=rho, s=s, N=N, dz=dz, energy=energy,
+        last_energy=states.energy, iteration=states.iteration + 1,
+        cg_iters=iters)
+
+
+def _lanes_to_operator(states: srps.SRPSState, lanes: list, lam: float):
+    """Lighting, s-moments, albedo and the depth operator, lane by lane:
+    ``(s, rho, per-lane operators, the stacked operator)``."""
+    B = len(lanes)
+    ss, rhos, ops = [], [], []
+    for b, pb in enumerate(lanes):
+        with tracing.span("srps.lighting", lane=b):
+            s = srps.estimate_lighting(pb, states.rho[b], states.N[b],
+                                       states.s[b])
+        with tracing.span("srps.albedo", lane=b):
+            mom = srps.s_moments(pb, s)
+            rho = srps.estimate_albedo(pb, mom, states.N[b], states.rho[b])
+        ss.append(s)
+        rhos.append(rho)
+        with tracing.span("srps.depth_operator", lane=b):
+            ops.append(srps.build_depth_operator(pb, mom, rho, states.dz[b],
+                                                 lam))
+    with tracing.span("srps.depth_operator", lanes=B):
+        op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
+    return torch.stack(ss), torch.stack(rhos), ops, op
+
+
+def _lanes_normals(z, lanes: list):
+    """``(N, dz)`` stacked over the lanes of ``z``."""
+    normals = []
+    for b, pb in enumerate(lanes):
+        with tracing.span("srps.normals", lane=b):
+            normals.append(srps.depth_normals(z[b], pb))
+    return tuple(torch.stack(t) for t in zip(*normals))
 
 
 def _freeze(stopped: torch.Tensor, old: srps.SRPSState,
             new: srps.SRPSState) -> srps.SRPSState:
-    """``new`` where a lane runs on, ``old`` where it has stopped."""
+    """``new`` where a lane runs on, ``old`` where it has stopped (a
+    field that the glue's graphs wrote in place, frozen, is ``old``'s own
+    tensor)."""
     def pick(o, n):
+        if o is n:
+            return n
         keep = stopped.reshape((-1,) + (1,) * (n.dim() - 1))
         return torch.where(keep, o, n)
 
@@ -189,15 +227,23 @@ def solve_batched(states: srps.SRPSState, probs: srps.SRPSProblem, sf: int,
                        device=dev)
     stopped = torch.zeros(B, dtype=torch.bool, device=dev)
     states = states._replace(iteration=states.iteration.to(dev))
-    for it in range(trace_len):
-        with tracing.span("srps.stop"):
-            if tracing.read(bool, stopped.all()):
-                break
-        merged = _iteration_lockstep(states, probs, lanes, sf, cfg, block)
-        with tracing.span("srps.stop"):
-            # Rebound, so that the unfrozen iterate is freed here.
-            merged = _freeze(stopped, states, merged)
-            trace[:, it] = torch.where(stopped, trace[:, it], merged.energy)
-            stopped = stopped | srps.should_stop(merged, cfg)
-        states = merged
+    graphs = glue.for_solve(dev)
+    try:
+        for it in range(trace_len):
+            with tracing.span("srps.stop"):
+                if tracing.read(bool, stopped.all()):
+                    break
+            merged = _iteration_lockstep(states, probs, lanes, sf, cfg, block,
+                                         graphs=graphs, stopped=stopped)
+            with tracing.span("srps.stop"):
+                # Rebound, so that the unfrozen iterate is freed here.
+                merged = _freeze(stopped, states, merged)
+                trace[:, it] = torch.where(stopped, trace[:, it],
+                                           merged.energy)
+                # In place: the graphs read ``stopped`` where it lies.
+                stopped |= srps.should_stop(merged, cfg)
+            states = merged
+    finally:
+        if graphs is not None:
+            graphs.close()
     return states, trace

@@ -187,7 +187,7 @@ def _solve_fused(state, prob, sf, cfg, rt, block, verbose, viewer, check):
         # Device tensors only: nothing here waits for the device.
         records.append((st.iteration, st.energy, st.cg_iters))
         if keep_states:
-            states.append(st)
+            states.append(srps.snapshot(st))
 
     t = Timer(prob.mask.device).start()
     final, _ = srps.solve_fused(state, prob, sf, cfg, block,

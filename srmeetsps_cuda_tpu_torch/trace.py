@@ -24,19 +24,24 @@ Spans (all under ``srps.``, apart from any range the caller opens):
   the upsample's), ``.pad``, ``.problem`` (``build_problem``) and
   ``.state`` (``init_state``);
 * ``srps.iteration``, one outer iteration (``lanes`` of a lockstep
-  batch), and inside it ``srps.lighting``, ``srps.albedo``,
+  batch; ``glue``, how its glue ran: ``"eager"``, ``"capture"`` or
+  ``"replay"`` from the solve's CUDA graphs, ``models/glue.py``; counts
+  ``glue_replays``, the lanes whose glue it replayed), and inside it
+  ``srps.lighting``, ``srps.albedo``,
   ``srps.depth_operator``, ``srps.depth_cg`` (attrs ``lanes``, ``sf`` and
   ``form``, the CG's Jacobi form: ``"plain"``, ``"scaled"`` or ``"pcg"``;
   counts ``cg_iters``, the kernel's own per-lane count, kept on the device
   until the store is read) and ``srps.normals``; a lockstep batch's
-  per-lane phases carry ``lane``;
+  per-lane phases carry ``lane``. An iteration that replays the glue
+  opens only ``srps.depth_cg`` inside it: the graphs' kernels are launched
+  by the ``srps.iteration`` range itself;
 * ``srps.stop``, the stop test between outer iterations, and
   ``srps.results``, the host reads after the loop.
 
 Counters: ``host_reads`` (each call that waits for the device: a
 tensor's value read on the host, a synchronise), ``h2d_bytes``,
-``cg_iters``, and on ``.inpaint`` ``inpaint_passes`` (the launches of
-``csrc/inpaint.cu``). None of them launches a kernel.
+``cg_iters``, ``glue_replays``, and on ``.inpaint`` ``inpaint_passes``
+(the launches of ``csrc/inpaint.cu``). None of them launches a kernel.
 
 :func:`records` and :func:`totals` read the store; :func:`dump` writes
 it as JSON lines (``runtime.solver.profiling`` does, beside the trace).
