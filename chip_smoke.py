@@ -520,14 +520,14 @@ def inpaint_vs_plain(label, dev) -> dict:
         for pattern in ("dense", "bench"):
             u, img, known_b = inpaint_inputs(h, w, pattern, dev)
             want = ik.relax_plain(u, img, known_b, n)
-            before = ik.relax_cuda.launches
+            before = launch_count("inpaint")
             got = ik.relax_cuda(u.clone(), known_b, n)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"inpaint {h}x{w} {pattern}: {int((got != want).sum())} "
                     "pixels differ from the plain loop")
-            launched = ik.relax_cuda.launches - before
+            launched = launch_count("inpaint") - before
             if launched != passes:
                 raise AssertionError(f"inpaint: {launched} launches for {n} "
                                      "sweeps")
@@ -641,11 +641,11 @@ def kernel_vs_plain(label, shapes):
         const = float(op.const)
         errs, infos = {}, {}
         for cap in (2, 12, 100):
-            before = sc.stencil_cg.launches
+            before = launch_count("stencil_cg")
             x, k, _, e, C = sc.stencil_cg(*args, sf=sf, lam=1.0,
                                           max_iter=cap, planes=True)
             torch.cuda.synchronize()
-            if sc.stencil_cg.launches != before + 1:
+            if launch_count("stencil_cg") != before + 1:
                 raise AssertionError("stencil_cg did not count its launch")
             infos[256, 4] = one_launch(sc.stencil_cg, f"{h}x{w} cap {cap}")
             px, pk, _, pe, pC = sc.stencil_cg_plain(
@@ -1006,13 +1006,12 @@ def cg_vs_plain(label, grids, form: str):
     tracked = form in ("jacobi", "direct", "direct jacobi")
     if form == "jacobi":
         kernel, plain, counter = sc.stencil_cg, sc.stencil_cg_plain, \
-            "jacobi_launches"
+            "stencil_cg jacobi"
     elif direct:
         kernel, plain = dc.direct_cg, dc.direct_cg_plain
-        counter = {"direct": "launches", "direct jacobi": "jacobi_launches",
-                   "direct host_r0": "host_r0_launches"}[form]
+        counter = form.replace("direct", "direct_cg", 1)
     else:
-        kernel, plain, counter = cg.cgs_cg, cg.cgs_cg_plain, "launches"
+        kernel, plain, counter = cg.cgs_cg, cg.cgs_cg_plain, "cgs_cg"
     res = "gamma" if form == "cgs" else "residual"
 
     def given_residual(ln, x0, sf):
@@ -1062,12 +1061,12 @@ def cg_vs_plain(label, grids, form: str):
                 for block in blocks:
                     where = (f"{name} {h}x{w} sf={sf} seed {seed} {start} "
                              f"cap {cap} block {block}")
-                    before = getattr(kernel, counter)
+                    before = launch_count(counter)
                     x, k, r1, e, C = call(kernel, ln, x0, checks=True,
                                           b=b_res, sf=sf, lam=1.0,
                                           max_iter=cap, block=block)
                     torch.cuda.synchronize()
-                    if getattr(kernel, counter) != before + 1:
+                    if launch_count(counter) != before + 1:
                         raise AssertionError(f"{where}: launch not counted")
                     infos[block] = one_launch(kernel, where)
                     if form == "jacobi" and not torch.equal(C, pC):
@@ -1383,17 +1382,15 @@ def shard_vs_plain(label, grids, timed, shards=4):
     import torch
 
     from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
-    from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
 
     mesh = scg.make_mesh_1d(shards, "cuda")
-    counters = {"std": (sk.step_a, "launches"),
-                "cgs": (sk.cgs_step, "launches"),
-                "jacobi": (sk.step_b, "jacobi_launches")}
+    counters = {"std": "shard_cg sweep_a", "cgs": "shard_cg cgs_sweep",
+                "jacobi": "shard_cg sweep_b jacobi"}
     routes = (("persistent", BLOCKS), ("steps", BLOCKS[:2]))
     out = {form: {} for form in SHARD_FORMS}
     for (h, w, sf), (lanes, _) in grids.items():
         for form in SHARD_FORMS:
-            obj, attr = counters[form]
+            counter = counters[form]
             gaps = {route: {} for route in ("persistent", "steps", "routes")}
             infos, vs_one, max_dx = {}, [], {}
             for seed, ln in enumerate(lanes[:2]):
@@ -1408,15 +1405,15 @@ def shard_vs_plain(label, grids, timed, shards=4):
                             where = (f"shard_cg {form} {route} {h}x{w} sf={sf}"
                                      f" seed {seed} {start} cap {cap} block "
                                      f"{block}")
-                            before = (scg.persistent.launches,
-                                      getattr(obj, attr))
+                            before = (launch_count("shard_cg persistent"),
+                                      launch_count(counter))
                             got = shard_call(
                                 form, ln, mesh, x0, block=block,
                                 route=None if route == "persistent"
                                 else route, **kw)
                             torch.cuda.synchronize()
-                            after = (scg.persistent.launches,
-                                     getattr(obj, attr))
+                            after = (launch_count("shard_cg persistent"),
+                                     launch_count(counter))
                             want = ((before[0] + 1, before[1])
                                     if route == "persistent" else
                                     (before[0],
@@ -1667,50 +1664,32 @@ def run_cli(argv, tmp):
         return [json.loads(line) for line in f], wall
 
 
-def kernel_counters():
-    """The launch counts each run is read by: name -> (object, attribute).
-    ``stencil_cg`` counts every run of the stencil CG kernels, ``stencil_cg
-    jacobi`` those in a Jacobi form; ``direct_cg`` every run of the direct
-    CG kernels, ``direct_cg jacobi`` those with invd and ``direct_cg
-    host_r0`` those given their residual; ``shard_cg persistent`` every
-    persistent row-shard launch (one per sharded CG solve), ``... jacobi``
-    and ``... cgs`` those of the Jacobi and CGS forms; the other ``shard_cg
-    ...`` the launches of each per-step row-shard kernel, one per shard;
-    ``inpaint`` the launches of the inpaint's Jacobi kernel, ceil(sweeps /
-    K) for each capture prepared."""
-    from srmeetsps_cuda_tpu_torch.pre import inpaint as ik
-    from srmeetsps_cuda_tpu_torch.solve import cgs_cg as cg
-    from srmeetsps_cuda_tpu_torch.solve import direct_cg as dc
-    from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
+# The kernels whose launches each run is read by, by their names in the
+# launch registry (``srmeetsps_cuda_tpu_torch/trace.py`` says what each
+# counts).
+COUNTED = ("stencil_cg", "stencil_cg jacobi", "cgs_cg", "direct_cg",
+           "direct_cg jacobi", "direct_cg host_r0", "shard_cg persistent",
+           "shard_cg persistent jacobi", "shard_cg persistent cgs",
+           "shard_cg prologue", "shard_cg sweep_a", "shard_cg sweep_b",
+           "shard_cg sweep_b jacobi", "shard_cg cgs_sweep", "inpaint")
+_counted_from = {}  # the registry's counts at the last reset_counts()
 
-    from srmeetsps_cuda_tpu_torch.parallel import shard_cg as scg
-    from srmeetsps_cuda_tpu_torch.parallel import shard_kernels as sk
 
-    return {"stencil_cg": (sc.stencil_cg, "launches"),
-            "stencil_cg jacobi": (sc.stencil_cg, "jacobi_launches"),
-            "cgs_cg": (cg.cgs_cg, "launches"),
-            "direct_cg": (dc.direct_cg, "launches"),
-            "direct_cg jacobi": (dc.direct_cg, "jacobi_launches"),
-            "direct_cg host_r0": (dc.direct_cg, "host_r0_launches"),
-            "shard_cg persistent": (scg.persistent, "launches"),
-            "shard_cg persistent jacobi": (scg.persistent, "jacobi_launches"),
-            "shard_cg persistent cgs": (scg.persistent, "cgs_launches"),
-            "shard_cg prologue": (sk.prologue, "launches"),
-            "shard_cg sweep_a": (sk.step_a, "launches"),
-            "shard_cg sweep_b": (sk.step_b, "launches"),
-            "shard_cg sweep_b jacobi": (sk.step_b, "jacobi_launches"),
-            "shard_cg cgs_sweep": (sk.cgs_step, "launches"),
-            "inpaint": (ik.relax_cuda, "launches")}
+def launch_count(name: str) -> int:
+    """The launches of the kernel ``name`` in this process so far."""
+    from srmeetsps_cuda_tpu_torch import trace as tracing
+
+    return tracing.launch_counts().get(name, 0)
 
 
 def reset_counts():
-    for obj, attr in kernel_counters().values():
-        setattr(obj, attr, 0)
+    _counted_from.clear()
+    _counted_from.update({k: launch_count(k) for k in COUNTED})
 
 
 def read_counts() -> dict:
-    return {k: getattr(obj, attr)
-            for k, (obj, attr) in kernel_counters().items()}
+    """The launches of each of COUNTED since the last reset_counts()."""
+    return {k: launch_count(k) - _counted_from.get(k, 0) for k in COUNTED}
 
 
 def inpaint_passes(captures: int, sweeps: int = 512) -> int:

@@ -69,6 +69,7 @@ import traceback
 import numpy as np
 import torch
 
+from . import trace as tracing
 from .config import RuntimeConfig, SolverConfig
 from .device import resolve_device, synchronize
 from .io.image_loader import ProblemData, load_image_dataset
@@ -78,7 +79,6 @@ from .ops import gradients as gradops
 from .ops.grid import meshgrid_camera
 from .ops.normals import normals_from_depth
 from .parallel import batched
-from .pre import inpaint as ik
 from .runtime.solver import prepare, solve
 from .solve import direct_cg as dc
 from .solve import stencil_cg as sc
@@ -132,9 +132,9 @@ def _note(msg: str) -> None:
 
 def launch_counts() -> dict:
     """The launches each kernel of the bench's path has made so far."""
-    return {"stencil_cg": sc.stencil_cg.launches,
-            "direct_cg": dc.direct_cg.launches,
-            "inpaint": ik.relax_cuda.launches}
+    counts = tracing.launch_counts()
+    return {k: counts.get(k, 0) for k in ("stencil_cg", "direct_cg",
+                                          "inpaint")}
 
 
 def device_label(device: torch.device) -> str:

@@ -1,10 +1,10 @@
-"""The outer iteration's glue, replayed from CUDA graphs.
+"""How the outer iteration's glue runs, decided here alone.
 
 The glue is all of an outer iteration but the depth CG's launch: on the
 card some 500 small kernels a lane, each a host launch, around 2.3 ms of
 device work at 960 x 1280. Its shapes are fixed for a whole solve, and it
-reads nothing back to the host, so a solve captures it once and replays
-it:
+reads nothing back to the host, so where the graphs engage
+(:func:`engages`) a solve captures it once and replays it:
 
 * the first outer iteration runs eagerly (``"eager"``): it sets up
   cuBLAS and the caching allocator outside any capture, and its results
@@ -17,11 +17,13 @@ it:
   launch is not captured), and its depth is copied into the buffer of z;
 * every later one (``"replay"``) launches the two graphs.
 
-The graphs hold the same kernels in the same order as the eager path, so
-a solve's results are the eager solve's, bit for bit. The state handed on
-from an iteration is made of the buffers, which the next iteration
-overwrites: a caller that keeps an iterate keeps a copy
-(``srps.snapshot``).
+Elsewhere a solve's :class:`Glue` stays ``"eager"``. Its callers run each
+half and the CG's depth through it alike in every mode; it alone writes
+the state back (a lockstep batch's stopped lanes kept). The graphs hold
+the eager path's kernels in its order: a solve's results are the eager
+solve's, bit for bit. The state handed on from an iteration is made of
+the buffers, which the next iteration overwrites: a caller that keeps an
+iterate keeps a copy (``srps.snapshot``).
 
 The graphs of every solve share one memory pool for the process, so that
 after the first capture a capture finds its memory in the pool. A solve
@@ -30,7 +32,11 @@ frees its graphs (:meth:`Glue.close`) when it ends.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from .. import trace as tracing
 
 _pools = {}  # device index -> (pool handle, the graph that holds it, ...)
 _streams = {}  # device index -> the capture stream
@@ -43,9 +49,23 @@ def engages(device: torch.device, check) -> bool:
 
 
 def for_solve(device: torch.device, check=None):
-    """A :class:`Glue` for a solve on ``device``, or None where the glue
-    runs eagerly (:func:`engages`)."""
-    return Glue(device) if engages(device, check) else None
+    """The :class:`Glue` of a solve on ``device``: eager throughout where
+    the graphs do not engage (:func:`engages`)."""
+    return Glue(device, engages(device, check))
+
+
+def write_into(state, fields, values, stopped=None):
+    """Write the first ``len(fields)`` of ``values`` into ``state``'s
+    tensors of those names (of a lockstep batch, but for the lanes that
+    have ``stopped``); returns the rest of ``values``."""
+    for name, v in zip(fields, values):
+        old = getattr(state, name)
+        if stopped is None:
+            old.copy_(v)
+        else:
+            keep = stopped.reshape((-1,) + (1,) * (v.dim() - 1))
+            torch.where(keep, old, v, out=old)
+    return values[len(fields):]
 
 
 def _pool(device: torch.device):
@@ -84,12 +104,12 @@ def _stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class Glue:
-    """The glue graphs of one solve. :attr:`mode` is what the next outer
-    iteration does; :meth:`run` captures a half of the glue or replays
-    it; :meth:`step` ends an iteration."""
+    """The glue of one solve: :attr:`mode` is what the next outer
+    iteration does, always ``"eager"`` unless ``engaged``."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, engaged: bool = True):
         self.device = device
+        self.engaged = engaged
         self.warm = False
         self.graphs = {}  # name -> (CUDAGraph, what the capture returned)
 
@@ -99,7 +119,37 @@ class Glue:
             return "eager"
         return "replay" if len(self.graphs) == 2 else "capture"
 
-    def run(self, name: str, fn):
+    @contextlib.contextmanager
+    def iteration(self, **attrs):
+        """The span ``srps.iteration`` of one outer iteration (``attrs``,
+        and the mode as ``glue``); counts in ``glue_replays`` the lanes
+        (``attrs["lanes"]``, else 1) it replays. Its end moves the mode."""
+        mode = self.mode
+        with tracing.span("srps.iteration", **attrs, glue=mode):
+            tracing.count("glue_replays",
+                          attrs.get("lanes", 1) if mode == "replay" else 0)
+            yield
+        self.warm = self.engaged
+
+    def run(self, name: str, state, fields, fn, stopped=None) -> tuple:
+        """Half ``name`` of the glue, ``fn()``: its values, the new state's
+        ``fields`` first. From the graph ``name``, which ends by writing
+        them into ``state``'s (:func:`write_into`), ``state``'s tensors."""
+        if self.mode == "eager":
+            return fn()
+        rest = self.replay(name, lambda: write_into(state, fields, fn(),
+                                                    stopped))
+        return tuple(getattr(state, f) for f in fields) + tuple(rest)
+
+    def depth(self, state, z, stopped=None):
+        """The CG's depth ``z``, from the graphs on written into
+        ``state.z`` (:func:`write_into`), which graph B reads."""
+        if self.mode == "eager":
+            return z
+        write_into(state, ("z",), (z,), stopped)
+        return state.z
+
+    def replay(self, name: str, fn):
         """Replay the graph ``name``, capturing ``fn`` into it first if it
         has none; returns what ``fn`` returned at the capture (tensors the
         replays write)."""
@@ -132,10 +182,6 @@ class Glue:
         torch._C._cuda_clearCublasWorkspaces()
         main.wait_stream(side)
         return graph, out
-
-    def step(self) -> None:
-        """End an outer iteration."""
-        self.warm = True
 
     def close(self) -> None:
         """Free the graphs and their outputs (their memory stays in the

@@ -608,77 +608,56 @@ def check_finite(phase: str, *tensors) -> None:
             f"invalid value (nan or inf) after the {phase} phase")
 
 
+def no_check(*_) -> None:
+    """The per-phase check of a solve that checks nothing."""
+
+
 def srps_iteration(state: SRPSState, prob: SRPSProblem, sf: int,
                    cfg: SolverConfig, block=(256, 4), check=None,
                    graphs=None) -> SRPSState:
     """Lighting -> albedo -> depth -> normals (SRPS.cu:276-335 body).
     ``check(phase, *outputs)`` (:func:`check_finite`) sees each phase's
-    outputs. With ``graphs`` (a solve's ``glue.Glue``) past its eager first
-    iteration, the lighting-to-operator half and the normals run as its
-    graphs around the CG, and the state returned is ``state``'s tensors
-    written in place."""
-    check = check or (lambda *_: None)
-    mode = "eager" if graphs is None else graphs.mode
-    with tracing.span("srps.iteration", glue=mode):
-        tracing.count("glue_replays", int(mode == "replay"))
-        if mode == "eager":
-            s, rho, op = _lighting_to_operator(state, prob, cfg, check)
-            z, energy, cg_iters = solve_depth(state.z, op, prob, sf, cfg,
-                                              block)
-            check("depth", z, energy)
-            del op  # not needed past the CG
-            N, dz = _normals(z, prob, check)
-        else:
-            (op,) = graphs.run("a", lambda: write_into(
-                state, ("s", "rho"),
-                _lighting_to_operator(state, prob, cfg, check)))
-            z, energy, cg_iters = solve_depth(state.z, op, prob, sf, cfg,
-                                              block)
-            state.z.copy_(z)
-            graphs.run("b", lambda: write_into(
-                state, ("N", "dz"), _normals(state.z, prob, check)))
-            z, rho, s, N, dz = state.z, state.rho, state.s, state.N, state.dz
-    if graphs is not None:
-        graphs.step()
+    outputs. ``graphs`` is the solve's ``glue.Glue`` (a new one where none
+    is given), whose graphs may write the state returned into ``state``'s."""
+    graphs = graphs or glue.for_solve(prob.mask.device, check)
+    check = check or no_check
+    with graphs.iteration():
+        s, rho, op = graphs.run("a", state, ("s", "rho"), lambda: (
+            lighting_to_operator(prob, state.rho, state.N, state.s,
+                                 state.dz, cfg.lam, check)))
+        z, energy, cg_iters = solve_depth(state.z, op, prob, sf, cfg, block)
+        check("depth", z, energy)
+        del op  # not needed past the CG
+        z = graphs.depth(state, z)
+        N, dz = graphs.run("b", state, ("N", "dz"),
+                           lambda: normals(z, prob, check))
     return SRPSState(z=z, rho=rho, s=s, N=N, dz=dz, energy=energy,
                      last_energy=state.energy,
                      iteration=state.iteration + 1, cg_iters=cg_iters)
 
 
-def _lighting_to_operator(state: SRPSState, prob: SRPSProblem,
-                          cfg: SolverConfig, check):
-    """The glue before the CG: ``(s, rho, op)``."""
-    with tracing.span("srps.lighting"):
-        s = estimate_lighting(prob, state.rho, state.N, state.s)
+def lighting_to_operator(prob: SRPSProblem, rho, N, s, dz, lam: float,
+                         check=no_check, **span):
+    """The glue before the CG from one problem's ``rho``, ``N``, ``s`` and
+    ``dz``: ``(s, rho, op)``, each phase a span with attrs ``span``."""
+    with tracing.span("srps.lighting", **span):
+        s = estimate_lighting(prob, rho, N, s)
         check("lighting", s)
-    with tracing.span("srps.albedo"):
+    with tracing.span("srps.albedo", **span):
         mom = s_moments(prob, s)
-        rho = estimate_albedo(prob, mom, state.N, state.rho)
+        rho = estimate_albedo(prob, mom, N, rho)
         check("s-moments and albedo", mom.G, mom.J, rho)
-    with tracing.span("srps.depth_operator"):
-        op = build_depth_operator(prob, mom, rho, state.dz, cfg.lam)
+    with tracing.span("srps.depth_operator", **span):
+        op = build_depth_operator(prob, mom, rho, dz, lam)
     return s, rho, op
 
 
-def _normals(z, prob: SRPSProblem, check):
-    with tracing.span("srps.normals"):
+def normals(z, prob: SRPSProblem, check=no_check, **span):
+    """The glue after the CG: ``(N, dz)`` of ``z``, in ``srps.normals``."""
+    with tracing.span("srps.normals", **span):
         N, dz = depth_normals(z, prob)
         check("normals", N, dz)
     return N, dz
-
-
-def write_into(state, fields, values, stopped=None):
-    """Write the first ``len(fields)`` of ``values`` into ``state``'s
-    tensors of those names (of a lockstep batch, but for the lanes that
-    have ``stopped``); returns the rest of ``values``."""
-    for name, v in zip(fields, values):
-        old = getattr(state, name)
-        if stopped is None:
-            old.copy_(v)
-        else:
-            keep = stopped.reshape((-1,) + (1,) * (v.dim() - 1))
-            torch.where(keep, old, v, out=old)
-    return values[len(fields):]
 
 
 def snapshot(state):
@@ -725,6 +704,5 @@ def solve_fused(state: SRPSState, prob: SRPSProblem, sf: int,
             if on_iteration is not None:
                 on_iteration(st)
     finally:
-        if graphs is not None:
-            graphs.close()
+        graphs.close()
     return st, trace

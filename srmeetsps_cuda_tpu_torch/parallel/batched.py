@@ -14,13 +14,13 @@ configuration 4). Two execution forms:
   are frozen with ``torch.where`` and the loop runs until every lane has
   stopped; the energy trace has shape (B, max_iterations + 2).
 
-Lighting, s-moments, albedo, the depth operator, the depth energy of the
-CGS variant and the normals run lane by lane through the single-problem
-functions of ``models/srps.py``, on views of the stacked state. With the
-CG kernel's lanes bit for bit equal to its B = 1 launches, this keeps each
-lockstep lane bit-identical to its solo solve on the card. On a CUDA
-device that glue, all lanes', is captured once a solve as two CUDA graphs
-around the CG's launch and replayed (``models/glue.py``), the frozen lanes
+The glue runs lane by lane through the single solve's own phases
+(``srps.lighting_to_operator``, ``srps.normals``) on views of the stacked
+state's fields, and stacks their results. With the CG kernel's lanes bit
+for bit equal to its B = 1 launches, this keeps each lockstep lane
+bit-identical to its solo solve on the card. ``models/glue.py`` decides
+how that glue, all lanes', runs: on a CUDA device, captured once a solve
+as two CUDA graphs around the CG's launch and replayed, the frozen lanes
 kept inside the graphs. Stacked tensors would merge those ~250 small
 operations per lane into ~250 per batch; that is later work.
 
@@ -129,21 +129,15 @@ def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
                         graphs=None, stopped=None):
     """One outer iteration of every lane; the depth CG of all lanes is one
     launch (``srps.depth_cg`` on the stacked operator). Lane b's phases
-    are spans with ``lane=b``. With ``graphs`` (the solve's
-    ``glue.Glue``) past its eager first iteration, the glue of all lanes
-    runs as its two graphs around the CG, each ending by writing its
-    results into ``states``' tensors, frozen where ``stopped`` (a lane
-    that has stopped keeps its values, as :func:`_freeze` keeps them)."""
+    are spans with ``lane=b``. ``graphs`` as ``srps.srps_iteration``'s;
+    its graphs keep the values of the lanes that have ``stopped``, as
+    :func:`_freeze` does."""
     B = len(lanes)
-    mode = "eager" if graphs is None else graphs.mode
-    with tracing.span("srps.iteration", lanes=B, glue=mode):
-        tracing.count("glue_replays", B if mode == "replay" else 0)
-        if mode == "eager":
-            s, rho, ops, op = _lanes_to_operator(states, lanes, cfg.lam)
-        else:
-            ops, op = graphs.run("a", lambda: srps.write_into(
-                states, ("s", "rho"),
-                _lanes_to_operator(states, lanes, cfg.lam), stopped))
+    graphs = graphs or glue.for_solve(states.z.device)
+    with graphs.iteration(lanes=B):
+        s, rho, ops, op = graphs.run(
+            "a", states, ("s", "rho"),
+            lambda: _lanes_to_operator(states, lanes, cfg.lam), stopped)
         with tracing.span("srps.depth_cg", lanes=B, sf=int(sf),
                           form=srps.cg_form(sf, cfg)):
             z, energy, iters = srps.depth_cg(
@@ -151,17 +145,9 @@ def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
                 lanes=list(zip(ops, lanes)))
             tracing.count("cg_iters", iters)
         del ops, op  # not needed past the CG
-        if mode == "eager":
-            N, dz = _lanes_normals(z, lanes)
-        else:
-            srps.write_into(states, ("z",), (z,), stopped)
-            graphs.run("b", lambda: srps.write_into(
-                states, ("N", "dz"), _lanes_normals(states.z, lanes),
-                stopped))
-            z, rho, s, N, dz = (states.z, states.rho, states.s, states.N,
-                                states.dz)
-    if graphs is not None:
-        graphs.step()
+        z = graphs.depth(states, z, stopped)
+        N, dz = graphs.run("b", states, ("N", "dz"),
+                           lambda: _lanes_normals(z, lanes), stopped)
     return srps.SRPSState(
         z=z, rho=rho, s=s, N=N, dz=dz, energy=energy,
         last_energy=states.energy, iteration=states.iteration + 1,
@@ -169,33 +155,20 @@ def _iteration_lockstep(states: srps.SRPSState, probs: srps.SRPSProblem,
 
 
 def _lanes_to_operator(states: srps.SRPSState, lanes: list, lam: float):
-    """Lighting, s-moments, albedo and the depth operator, lane by lane:
-    ``(s, rho, per-lane operators, the stacked operator)``."""
-    B = len(lanes)
-    ss, rhos, ops = [], [], []
-    for b, pb in enumerate(lanes):
-        with tracing.span("srps.lighting", lane=b):
-            s = srps.estimate_lighting(pb, states.rho[b], states.N[b],
-                                       states.s[b])
-        with tracing.span("srps.albedo", lane=b):
-            mom = srps.s_moments(pb, s)
-            rho = srps.estimate_albedo(pb, mom, states.N[b], states.rho[b])
-        ss.append(s)
-        rhos.append(rho)
-        with tracing.span("srps.depth_operator", lane=b):
-            ops.append(srps.build_depth_operator(pb, mom, rho, states.dz[b],
-                                                 lam))
-    with tracing.span("srps.depth_operator", lanes=B):
+    """``srps.lighting_to_operator`` of each lane, stacked: ``(s, rho,
+    per-lane operators, the stacked operator)``."""
+    ss, rhos, ops = zip(*(
+        srps.lighting_to_operator(pb, states.rho[b], states.N[b],
+                                  states.s[b], states.dz[b], lam, lane=b)
+        for b, pb in enumerate(lanes)))
+    with tracing.span("srps.depth_operator", lanes=len(lanes)):
         op = srps.DepthOperator(*(torch.stack(f) for f in zip(*ops)))
     return torch.stack(ss), torch.stack(rhos), ops, op
 
 
 def _lanes_normals(z, lanes: list):
-    """``(N, dz)`` stacked over the lanes of ``z``."""
-    normals = []
-    for b, pb in enumerate(lanes):
-        with tracing.span("srps.normals", lane=b):
-            normals.append(srps.depth_normals(z[b], pb))
+    """``srps.normals`` of each lane of ``z``: ``(N, dz)`` stacked."""
+    normals = [srps.normals(z[b], pb, lane=b) for b, pb in enumerate(lanes)]
     return tuple(torch.stack(t) for t in zip(*normals))
 
 
@@ -244,6 +217,5 @@ def solve_batched(states: srps.SRPSState, probs: srps.SRPSProblem, sf: int,
                 stopped |= srps.should_stop(merged, cfg)
             states = merged
     finally:
-        if graphs is not None:
-            graphs.close()
+        graphs.close()
     return states, trace

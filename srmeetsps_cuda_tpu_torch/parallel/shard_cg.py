@@ -44,6 +44,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import trace as tracing
 from ..solve.cg import tol_squared
 from ..solve.stencil_cg import (F_ROWS, INFO_KEYS, launch_error, launch_info,
                                 tile_plan)
@@ -273,8 +274,8 @@ def persistent(shards) -> Optional[dict]:
     (CGS), on the device's current stream. Shards on the CPU take the
     plain version (the host loop over the plain steps). Returns what the C
     entry reported of the launch (``launch_info``; None for the plain
-    version); a refused launch raises. Counters: ``persistent.launches``,
-    of them ``jacobi_launches`` and ``cgs_launches``."""
+    version); a refused launch raises. Counts ``"shard_cg persistent"``
+    (and ``... jacobi``, ``... cgs``) in the launch registry."""
     s = shards[0]
     if all(t.device.type == "cpu" for t in shards):
         _steps(shards, sk.PLAIN)
@@ -310,15 +311,12 @@ def persistent(shards) -> Optional[dict]:
         raise launch_error("row-shard CG", err)
     out = launch_info(info, plan, 1 if s.cgs else 2)
     persistent.last_launch = out
-    persistent.launches += 1
-    persistent.jacobi_launches += int(jac)
-    persistent.cgs_launches += int(s.cgs)
+    tracing.launched("shard_cg persistent")
+    tracing.launched("shard_cg persistent jacobi", int(jac))
+    tracing.launched("shard_cg persistent cgs", int(s.cgs))
     return out
 
 
-persistent.launches = 0
-persistent.jacobi_launches = 0
-persistent.cgs_launches = 0
 persistent.last_launch = None
 
 

@@ -33,10 +33,11 @@ halo rows and gathering the shards' sums in between:
 A halo plane is (h + 2, w): rows 0 and h + 1 hold the neighbour shards'
 edge rows (zeros at the global top and bottom). The combine adds the N
 shards' sums (``gathered``, (N, 2) float64) in shard order, so every shard
-holds the same scalars. Counters: ``prologue.launches``,
-``step_a.launches``, ``step_b.launches`` (``step_b.jacobi_launches`` those
-in the Jacobi form, kernel 14) and ``cgs_step.launches``, one per launch
-on one shard.
+holds the same scalars. Each launch on one shard is counted in the launch
+registry (``trace.launched``): ``"shard_cg prologue"`` (with the CGS w0),
+``"shard_cg sweep_a"``, ``"shard_cg sweep_b"`` (``"shard_cg sweep_b
+jacobi"`` those in the Jacobi form, kernel 14) and ``"shard_cg
+cgs_sweep"``.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace as tracing
 from ..ops import gradients as gradops
 from ..ops.gradients import GradientMasks
 from ..ops.grid import tilesum
@@ -405,7 +407,7 @@ def prologue(sh: Shard) -> None:
             _row0(sh.x0), _ptr(sh.invd), sh.x.data_ptr(), _row0(r_plane),
             sh.C.data_ptr(), sh.part.data_ptr(), sh.own.data_ptr(), sh.h,
             sh.w, sh.sf, float(sh.lam), *sh.block, int(sh.invd is not None))
-    prologue.launches += 1
+    tracing.launched("shard_cg prologue")
 
 
 def cgs_w0(sh: Shard) -> None:
@@ -416,7 +418,7 @@ def cgs_w0(sh: Shard) -> None:
     _launch(sh, "srps_shard_cgs_w0", sh.C.data_ptr(), _row0(sh.F),
             _row0(sh.rws), sh.part.data_ptr(), sh.own.data_ptr(), sh.h,
             sh.w, sh.sf, *sh.block)
-    prologue.launches += 1
+    tracing.launched("shard_cg prologue")
 
 
 def step_a(sh: Shard, k: int) -> None:
@@ -430,7 +432,7 @@ def step_a(sh: Shard, k: int) -> None:
             sh.own.data_ptr(), sh.h, sh.w, sh.sf, float(sh.tol2),
             int(sh.max_iter), *sh.block, int(sh.invd is not None),
             int(k == 1))
-    step_a.launches += 1
+    tracing.launched("shard_cg sweep_a")
 
 
 def step_b(sh: Shard, k: int) -> None:
@@ -444,8 +446,8 @@ def step_b(sh: Shard, k: int) -> None:
             _row0(sh.r), _row0(sh.p[k % 2]), sh.wv.data_ptr(), _ptr(sh.invd),
             sh.part.data_ptr(), sh.own.data_ptr(), sh.h, sh.w, *sh.block,
             int(jac))
-    step_b.launches += 1
-    step_b.jacobi_launches += int(jac)
+    tracing.launched("shard_cg sweep_b")
+    tracing.launched("shard_cg sweep_b jacobi", int(jac))
 
 
 def cgs_step(sh: Shard, k: int) -> None:
@@ -457,7 +459,7 @@ def cgs_step(sh: Shard, k: int) -> None:
             _row0(sh.F), sh.x.data_ptr(), sh.pc.data_ptr(), _row0(sh.rws),
             (k + 1) % 2, sh.part.data_ptr(), sh.own.data_ptr(), sh.h, sh.w,
             sh.sf, float(sh.tol2), int(sh.max_iter), *sh.block, int(k == 1))
-    cgs_step.launches += 1
+    tracing.launched("shard_cg cgs_sweep")
 
 
 def finish(sh: Shard) -> None:
@@ -473,12 +475,6 @@ def finish(sh: Shard) -> None:
         _launch(sh, "srps_shard_finish", g, n, scal, float(sh.tol2),
                 int(sh.max_iter), int(sh.invd is not None))
 
-
-prologue.launches = 0
-step_a.launches = 0
-step_b.launches = 0
-step_b.jacobi_launches = 0
-cgs_step.launches = 0
 
 # The steps a loop runs: the wrappers (kernel on a CUDA shard, plain version
 # on a CPU shard), or the plain versions on any device.

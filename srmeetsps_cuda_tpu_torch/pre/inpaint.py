@@ -99,7 +99,8 @@ def relax_cuda(u: torch.Tensor, known_b: torch.Tensor,
     """:func:`relax_plain` in ``csrc/inpaint.cu``, one launch a pass of
     :func:`sweeps_per_pass` sweeps: ``u`` (float32, CUDA, contiguous,
     equal to the image where ``known_b``) is the first of its two buffers
-    and may be overwritten. Counts the launches in ``inpaint_passes``."""
+    and may be overwritten. Counts the launches as ``"inpaint"`` in the
+    launch registry (``trace.launched``)."""
     if u.device.type != "cuda":
         raise ValueError(f"the inpaint kernel runs on cuda, not {u.device}")
     if u.dtype != torch.float32 or u.dim() != 2 or not u.is_contiguous():
@@ -117,12 +118,8 @@ def relax_cuda(u: torch.Tensor, known_b: torch.Tensor,
     if passes < 0:
         raise RuntimeError(f"inpaint kernel launch failed: CUDA error "
                            f"{-passes}")
-    relax_cuda.launches += passes
-    tracing.count("inpaint_passes", passes)
+    tracing.launched("inpaint", passes)
     return b if passes % 2 else u
-
-
-relax_cuda.launches = 0
 
 
 def inpaint_diffusion(img: torch.Tensor, holes: torch.Tensor,

@@ -13,8 +13,8 @@ versions of one function live here:
   in ``csrc/cgs_cg.cu``: all lanes and all CG iterations in one
   cooperative launch over the tiles of ``stencil_cg.tile_plan``. A CPU
   tensor takes the plain version; a CUDA tensor launches the kernel or
-  raises (a refused cooperative launch too). ``cgs_cg.launches`` counts
-  the kernel runs and ``cgs_cg.last_launch`` describes the last one.
+  raises (a refused cooperative launch too). It counts its runs as
+  ``"cgs_cg"`` (``trace.launched``); ``cgs_cg.last_launch`` the last one.
 
 The recurrence (pallas_cg_cgs.py:1-33) reorders standard CG's rounding:
 
@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from .. import trace as tracing
 from .cg import tol_squared
 from .stencil_cg import (INFO_KEYS, LAYOUTS, N_STENCIL, TILE_PART_ROWS,
                          build_c_planes, depth_rhs_fields, lane_dot,
@@ -150,9 +151,8 @@ def cgs_cg(x0, op, gm, ktw, z0t, *, sf: int, lam: float, tol: float = 1e-9,
     if err != 0:
         raise launch_error("CGS", err)
     cgs_cg.last_launch = launch_info(info, plan, 1)
-    cgs_cg.launches += 1
+    tracing.launched("cgs_cg")
     return x, scal[:, S_ITERS].to(torch.int32), scal[:, S_GAMMA]
 
 
-cgs_cg.launches = 0
 cgs_cg.last_launch = None

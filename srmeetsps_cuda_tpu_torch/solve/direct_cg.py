@@ -25,11 +25,11 @@ Two versions of one function live here:
   CTA count the C entry chooses from the card's occupancy; x and w stay in
   device memory (the kernel has no on-chip layout). A
   CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-  raises (a refused cooperative launch too). ``direct_cg.launches`` counts
-  the kernel runs, ``.jacobi_launches`` those with ``invd``,
-  ``.host_r0_launches`` those given their residual, and
-  ``direct_cg.last_launch`` describes the last one (layout, CTAs,
-  registers, device launches made).
+  raises (a refused cooperative launch too). It counts its runs in the
+  launch registry (``trace.launched``: ``"direct_cg"``, ``"direct_cg
+  jacobi"`` those with ``invd``, ``"direct_cg host_r0"`` those given their
+  residual); ``direct_cg.last_launch`` describes the last one (layout,
+  CTAs, registers, device launches made).
 
 Both apply ``M = KT^T KT + lam A^T A`` as the TPU kernels do
 (``_matvec_band``, pallas_cg_vmem.py:185), through the gradient masks and
@@ -59,6 +59,7 @@ import ctypes
 
 import torch
 
+from .. import trace as tracing
 from ..ops import gradients as gradops
 from ..ops.grid import tilesum
 from .cg import tol_squared
@@ -169,16 +170,13 @@ def direct_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
     if err != 0:
         raise launch_error("direct CG", err)
     direct_cg.last_launch = launch_info(info, plan, 2)
-    direct_cg.launches += 1
+    tracing.launched("direct_cg")
     if invd is not None:
-        direct_cg.jacobi_launches += 1
+        tracing.launched("direct_cg jacobi")
     if b is not None:
-        direct_cg.host_r0_launches += 1
+        tracing.launched("direct_cg host_r0")
     return (x, scal[:, S_ITERS].to(torch.int32), scal[:, S_RR],
             scal[:, S_E] if with_energy else None)
 
 
-direct_cg.launches = 0
-direct_cg.jacobi_launches = 0
-direct_cg.host_r0_launches = 0
 direct_cg.last_launch = None

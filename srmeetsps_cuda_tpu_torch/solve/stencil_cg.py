@@ -18,10 +18,10 @@ of one function live here:
   cooperative launch over the tiles of :func:`tile_plan`, whose CTA count
   and layout the C entry chooses from the card's occupancy. A CPU tensor
   takes the plain version; a CUDA tensor launches the kernel or raises (a
-  refused cooperative launch too). ``stencil_cg.launches`` counts the
-  kernel runs, ``stencil_cg.jacobi_launches`` those of them in a Jacobi
-  form, and ``stencil_cg.last_launch`` describes the last one (layout,
-  CTAs, registers, device launches made).
+  refused cooperative launch too). It counts its runs in the launch
+  registry (``trace.launched``: ``"stencil_cg"``, and ``"stencil_cg
+  jacobi"`` those in a Jacobi form); ``stencil_cg.last_launch`` describes
+  the last one (layout, CTAs, registers, device launches made).
 
 Both compute, per lane, from the warm start ``x0``:
 
@@ -67,6 +67,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import trace as tracing
 from ..ops import gradients as gradops
 from ..ops.grid import box_upsample_adjoint, tilesum
 from .cg import tol_squared
@@ -507,13 +508,11 @@ def stencil_cg(x0, op, gm, ktw, z0t, z0u, *, sf: int, lam: float,
     if err != 0:
         raise launch_error("stencil CG", err)
     stencil_cg.last_launch = launch_info(info, plan, 2)
-    stencil_cg.launches += 1
+    tracing.launched("stencil_cg")
     if form is not None:
-        stencil_cg.jacobi_launches += 1
+        tracing.launched("stencil_cg jacobi")
     out = (x, scal[:, S_ITERS].to(torch.int32), scal[:, S_RR], scal[:, S_E])
     return out + (C,) if planes else out
 
 
-stencil_cg.launches = 0
-stencil_cg.jacobi_launches = 0
 stencil_cg.last_launch = None

@@ -40,11 +40,15 @@ Spans (all under ``srps.``, apart from any range the caller opens):
 
 Counters: ``host_reads`` (each call that waits for the device: a
 tensor's value read on the host, a synchronise), ``h2d_bytes``,
-``cg_iters``, ``glue_replays``, and on ``.inpaint`` ``inpaint_passes``
-(the launches of ``csrc/inpaint.cu``). None of them launches a kernel.
+``cg_iters`` and ``glue_replays``. None of them launches a kernel.
 
 :func:`records` and :func:`totals` read the store; :func:`dump` writes
 it as JSON lines (``runtime.solver.profiling`` does, beside the trace).
+
+Apart from the store, profiler or not, the process counts the launches
+of its hand-written kernels by name: the wrapper that launches one calls
+:func:`launched` (its docstring names what it counts), and
+:func:`launch_counts` returns a copy of the counts.
 """
 
 from __future__ import annotations
@@ -57,6 +61,17 @@ import torch
 
 _enabled = torch.autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
+_launches = {}  # kernel name -> launches in this process
+
+
+def launched(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of the hand-written kernel ``name``."""
+    _launches[name] = _launches.get(name, 0) + n
+
+
+def launch_counts() -> dict:
+    """A copy of the process's kernel launches so far, by name."""
+    return dict(_launches)
 
 
 class Store:

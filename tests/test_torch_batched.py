@@ -29,6 +29,7 @@ from srmeetsps_cuda_tpu.runtime import solver as jsolver
 from srmeetsps_cuda_tpu.solve import pallas_cg
 from srmeetsps_cuda_tpu.solve import pallas_cg_vmem as pvm
 from srmeetsps_cuda_tpu_torch import cli, interop
+from srmeetsps_cuda_tpu_torch import trace as tracing
 from srmeetsps_cuda_tpu_torch.config import SolverConfig
 from srmeetsps_cuda_tpu_torch.io.image_loader import ProblemData
 from srmeetsps_cuda_tpu_torch.io.mat_loader import save_mat_dataset
@@ -116,11 +117,11 @@ def test_stencil_cg_batched_plain_lanes_match_solo():
                              zip(*[ln[1] for ln in lanes])))
     gm = type(lanes[0][2])(*(torch.stack(f) for f in
                              zip(*[ln[2] for ln in lanes])))
-    before = sc.stencil_cg.launches
+    before = tracing.launch_counts()
     xb, kb, rb, eb = sc.stencil_cg(stack(0), op, gm, stack(3), stack(4),
                                    stack(5), sf=2, lam=1.0, tol=1e-4,
                                    max_iter=12)
-    assert sc.stencil_cg.launches == before
+    assert tracing.launch_counts() == before
     assert xb.shape == (3, 24, 32) and kb.shape == eb.shape == (3,)
     for b, ln in enumerate(lanes):
         x1, k1, r1, e1 = sc.stencil_cg_plain(*ln, sf=2, lam=1.0, tol=1e-4,
@@ -143,11 +144,11 @@ def test_lockstep_matches_jax_solve_batched(interpret_full_stencil):
     tpb = interop.problem_from_numpy(jax_to_numpy(pb), CPU)
     tst = interop.state_from_numpy(jax_to_numpy(st), CPU)
     assert tpb.fx.shape == (2,) and tst.iteration.shape == (2,)
-    before = sc.stencil_cg.launches
+    before = tracing.launch_counts()
     final, ttrace = batched.solve_batched(tst, tpb, 2,
                                           SolverConfig(max_iterations=2))
     assert ttrace.shape == (2, 4) and final.z.shape == (2, 32, 32)
-    assert sc.stencil_cg.launches == before  # the CPU runs the plain version
+    assert tracing.launch_counts() == before  # the CPU runs the plain version
     jtrace, ttrace = np.asarray(jtrace), ttrace.numpy()
     for b in range(2):
         nj = int(np.isfinite(jtrace[b]).sum())

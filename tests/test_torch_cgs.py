@@ -21,6 +21,7 @@ from srmeetsps_cuda_tpu.models import srps as jsrps
 from srmeetsps_cuda_tpu.solve import pallas_cg
 from srmeetsps_cuda_tpu.solve.pallas_cg_cgs import cg_pallas_cgs
 from srmeetsps_cuda_tpu_torch import interop
+from srmeetsps_cuda_tpu_torch import trace as tracing
 from srmeetsps_cuda_tpu_torch.config import SolverConfig
 from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
 from srmeetsps_cuda_tpu_torch.models import srps as tsrps
@@ -120,10 +121,10 @@ def test_estimate_depth_cgs_matches_jax():
 def test_wrapper_takes_plain_version_on_cpu():
     _, (tp, ts, _, top) = _both(16, 32, 2)
     args = (ts.z, top, tp.gm, tp.ktw, tp.z0t)
-    before = cg.cgs_cg.launches
+    before = tracing.launch_counts()
     got = cg.cgs_cg(*args, sf=2, lam=1.0, max_iter=3)
     want = cg.cgs_cg_plain(*args, sf=2, lam=1.0, max_iter=3)
-    assert cg.cgs_cg.launches == before
+    assert tracing.launch_counts() == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -223,10 +224,10 @@ def test_cuda_kernel_matches_plain(sf):
     args = [(mv(ts.z), type(top)(*map(mv, top)), type(tp.gm)(*map(mv, tp.gm)),
              mv(tp.ktw), mv(tp.z0t)) for tp, ts, _, top in lanes]
     for a in args:
-        before = cg.cgs_cg.launches
+        before = tracing.launch_counts().get("cgs_cg", 0)
         x, k, _ = cg.cgs_cg(*a, sf=sf, lam=1.0, max_iter=12)
         torch.cuda.synchronize()
-        assert cg.cgs_cg.launches == before + 1
+        assert tracing.launch_counts().get("cgs_cg", 0) == before + 1
         px, pk, _ = cg.cgs_cg_plain(*a, sf=sf, lam=1.0, max_iter=12)
         assert int(k) == int(pk)
         assert _rel_rms(x.cpu().numpy(), px.cpu().numpy()) < 5e-2

@@ -42,6 +42,7 @@ from srmeetsps_cuda_tpu.solve.pallas_cg_fused import cg_pallas_fused
 from srmeetsps_cuda_tpu.solve.pallas_cg_pipe import (
     cg_pallas_pipelined, cg_pallas_pipelined_fromop)
 from srmeetsps_cuda_tpu_torch import interop
+from srmeetsps_cuda_tpu_torch import trace as tracing
 from srmeetsps_cuda_tpu_torch.config import RuntimeConfig, SolverConfig
 from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
 from srmeetsps_cuda_tpu_torch.models import srps as tsrps
@@ -218,8 +219,7 @@ def test_lanes_equal_solo_runs():
 
 def test_wrapper_takes_plain_version_on_cpu():
     _, t = _both(16, 32, 2)
-    before = (dc.direct_cg.launches, dc.direct_cg.jacobi_launches,
-              dc.direct_cg.host_r0_launches)
+    before = tracing.launch_counts()
     for kw in ({"with_energy": True}, {"invd": t[4], "with_energy": True},
                {"b": torch.ones_like(t[1].z)}):
         got = dc.direct_cg(*_port_args(t), sf=2, lam=1.0, max_iter=3, **kw)
@@ -227,8 +227,7 @@ def test_wrapper_takes_plain_version_on_cpu():
                                   **kw)
         for a, b in zip(got, want):
             assert (a is None and b is None) or torch.equal(a, b)
-    assert (dc.direct_cg.launches, dc.direct_cg.jacobi_launches,
-            dc.direct_cg.host_r0_launches) == before
+    assert tracing.launch_counts() == before
 
 
 def test_wrapper_rejects_other_devices_and_energy_with_given_residual():
@@ -682,11 +681,11 @@ def test_cuda_direct_kernel_matches_plain(sf):
     # 30 x 3 splits sf = 4 tiles between blocks.
     for invd, block in itertools.product((None, mv(tinvd)),
                                          ((256, 4), (30, 3))):
-        before = dc.direct_cg.launches
+        before = tracing.launch_counts().get("direct_cg", 0)
         x, k, r1, e = dc.direct_cg(*args, sf=sf, lam=1.0, max_iter=12,
                                    invd=invd, with_energy=True, block=block)
         torch.cuda.synchronize()
-        assert dc.direct_cg.launches == before + 1
+        assert tracing.launch_counts().get("direct_cg", 0) == before + 1
         px, pk, pr, pe = dc.direct_cg_plain(*args, sf=sf, lam=1.0,
                                             max_iter=12, invd=invd,
                                             with_energy=True)

@@ -5,8 +5,11 @@ check), the ``glue`` attribute and the ``glue_replays`` counter of every
 ``srps.iteration`` span on the single and the lockstep route, and
 ``bench_torch/metrics/glue_replay_pct.py`` on made-up timelines. On the
 CPU the glue runs eagerly; the graphs' contract is rehearsed as in
-``tests/test_torch_glue_graphs.py``.
+``tests/test_torch_glue_graphs.py``. The seam: a lockstep batch runs the
+single solve's per-lane phase functions, and no estimator itself.
 """
+
+import sys
 
 import pytest
 import torch
@@ -77,20 +80,70 @@ def test_engagement_rule():
     assert not glue.engages(CPU, None)
     assert not glue.engages(cuda, srps.check_finite)
     assert not glue.engages(CPU, srps.check_finite)
-    assert glue.for_solve(CPU) is None
-    assert glue.for_solve(CPU, srps.check_finite) is None
+    # Where the rule is false a solve's holder never leaves eager mode.
+    for check in (None, srps.check_finite):
+        g = glue.for_solve(CPU, check)
+        for _ in range(3):
+            assert g.mode == "eager"
+            with g.iteration():
+                pass
+        assert g.mode == "eager" and g.graphs == {}
+
+
+def step(g):
+    with g.iteration():
+        pass
 
 
 def test_a_glue_holder_walks_eager_capture_replay():
     g = glue.Glue(CPU)
     assert g.mode == "eager"
-    g.step()
+    step(g)
     assert g.mode == "capture"
     g.graphs.update(a=None, b=None)
-    g.step()
+    step(g)
     assert g.mode == "replay"
     g.close()
     assert g.graphs == {}
+
+
+def test_eager_halves_return_fresh_values_and_leave_the_state():
+    """In eager mode a half is its function's values and the depth the
+    CG's own; nothing is written into the state."""
+    g = glue.Glue(CPU)
+    st = srps.SRPSState(*(torch.zeros(2, 3) for _ in range(9)))
+    s, rho, op = g.run("a", st, ("s", "rho"),
+                       lambda: (torch.ones(2, 3), torch.ones(2, 3), "op"))
+    assert op == "op" and s is not st.s and rho is not st.rho
+    z = torch.ones(2, 3)
+    assert g.depth(st, z) is z
+    assert all(torch.equal(t, torch.zeros(2, 3)) for t in st)
+    assert g.graphs == {}
+
+
+def test_lockstep_lanes_run_the_single_solves_phases(captures, monkeypatch):
+    """A lockstep batch of B = 2 runs ``srps``'s per-lane phase functions
+    B times an outer iteration, and calls none of the estimators itself:
+    the seam between the two modules."""
+    calls = {"lighting_to_operator": [], "normals": []}
+    for name, got in calls.items():
+        def counted(*args, _fn=getattr(srps, name), _got=got, **kw):
+            _got.append(kw.get("lane"))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(srps, name, counted)
+    callers = set()
+    for name in ("estimate_lighting", "s_moments", "estimate_albedo",
+                 "build_depth_operator", "depth_normals"):
+        def seen(*args, _fn=getattr(srps, name), **kw):
+            callers.add(sys._getframe(1).f_globals["__name__"])
+            return _fn(*args, **kw)
+        monkeypatch.setattr(srps, name, seen)
+    its = iterations(lockstep(captures))
+    B = len(captures)
+    assert B == 2 and len(its) >= 2
+    for got in calls.values():
+        assert got == list(range(B)) * len(its)
+    assert batched.__name__ not in callers and srps.__name__ in callers
 
 
 @pytest.mark.parametrize("route", ["single", "lockstep"])

@@ -10,7 +10,7 @@ less the eager and the capture one; the iterates that ``dump_iterations``
 keeps equal the eager run's.
 
 On the CPU the same comparisons run with the graphs' contract rehearsed
-(:class:`Rehearsal`): the first ``run`` of a half records its function,
+(:class:`Rehearsal`): the first ``replay`` of a half records its function,
 every later one calls that function again and writes its results into the
 tensors the first returned, as a replay writes a graph's outputs. This
 holds the in-place state, the frozen lanes and the copies kept for the
@@ -44,7 +44,7 @@ class Rehearsal(glue.Glue):
     function on the tensors it captured and writes the tensors it
     returned."""
 
-    def run(self, name, fn):
+    def replay(self, name, fn):
         got = self.graphs.get(name)
         if got is None:
             got = self.graphs[name] = (fn, fn())

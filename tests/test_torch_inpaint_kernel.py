@@ -143,10 +143,10 @@ def kernel_vs_loop(shape, pattern, iters, dev):
     holes = holes_of(pattern, *shape)
     u, img, known_b = start(*shape, holes, dev)
     want = ik.relax_plain(u, img, known_b, iters)
-    before = ik.relax_cuda.launches
+    before = tracing.launch_counts().get("inpaint", 0)
     got = ik.relax_cuda(u.clone(), known_b, iters)
     torch.cuda.synchronize()
-    assert ik.relax_cuda.launches - before == math.ceil(
+    assert tracing.launch_counts().get("inpaint", 0) - before == math.ceil(
         iters / ik.sweeps_per_pass())
     assert torch.equal(got, want), (shape, pattern, iters)
 
@@ -177,8 +177,9 @@ def test_cuda_kernel_sweeps_per_pass():
 
 @pytest.mark.cuda
 def test_cuda_inpaint_counts_passes():
-    """Under a profiler the ``.inpaint`` span counts the kernel's launches
-    in ``inpaint_passes``."""
+    """The launch registry counts the inpaint kernel's launches as
+    ``"inpaint"``, under a profiler and inside the ``.inpaint`` span as
+    anywhere."""
     dev = card()
     h, w = 480, 640
     holes = np.zeros((h, w), bool)
@@ -186,12 +187,15 @@ def test_cuda_inpaint_counts_passes():
     holes[300:340, 500:600] = True
     img = torch.full((h, w), 900.0, device=dev)
     hole_t = torch.from_numpy(holes).to(dev)
+    before = tracing.launch_counts()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         with tracing.span("srps.prepare.inpaint"):
             ik.inpaint_diffusion(img, hole_t, iters=512)
-        counts = tracing.totals()
-    assert counts["inpaint_passes"] == math.ceil(512 / ik.sweeps_per_pass())
+    after = tracing.launch_counts()
+    assert after.pop("inpaint") - before.pop("inpaint", 0) == math.ceil(
+        512 / ik.sweeps_per_pass())
+    assert after == before
 
 
 @pytest.mark.cuda

@@ -44,6 +44,7 @@ from srmeetsps_cuda_tpu.solve import pallas_cg
 from srmeetsps_cuda_tpu.solve import pallas_cg_vmem as pvm
 from srmeetsps_cuda_tpu.solve.cg import conjugate_gradient as jcg
 from srmeetsps_cuda_tpu_torch import cli, interop
+from srmeetsps_cuda_tpu_torch import trace as tracing
 from srmeetsps_cuda_tpu_torch.config import RuntimeConfig, SolverConfig
 from srmeetsps_cuda_tpu_torch.io.mat_loader import save_mat_dataset
 from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
@@ -212,12 +213,12 @@ def test_wrapper_rejects_other_devices_with_jacobi():
 def test_wrapper_takes_plain_version_on_cpu_with_jacobi():
     _, (tp, ts, _, top, tinvd) = _both(16, 32, 2)
     args = (ts.z, top, tp.gm, tp.ktw, tp.z0t, tp.z0u)
-    before = (sc.stencil_cg.launches, sc.stencil_cg.jacobi_launches)
+    before = tracing.launch_counts()
     got = sc.stencil_cg(*args, sf=2, lam=1.0, max_iter=3, invd=tinvd,
                         planes=True)
     want = sc.stencil_cg_plain(*args, sf=2, lam=1.0, max_iter=3, invd=tinvd,
                                planes=True)
-    assert (sc.stencil_cg.launches, sc.stencil_cg.jacobi_launches) == before
+    assert tracing.launch_counts() == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     C = sc.build_c_planes(top, tp.gm, tp.ktw, 1.0, 2)
@@ -481,11 +482,11 @@ def test_cuda_jacobi_kernel_matches_plain(sf):
     mv = lambda a: a.to(dev)  # noqa: E731
     args = (mv(ts.z), type(top)(*map(mv, top)), type(tp.gm)(*map(mv, tp.gm)),
             mv(tp.ktw), mv(tp.z0t), mv(tp.z0u))
-    before = sc.stencil_cg.jacobi_launches
+    before = tracing.launch_counts().get("stencil_cg jacobi", 0)
     x, k, r1, e, C = sc.stencil_cg(*args, sf=sf, lam=1.0, max_iter=12,
                                    planes=True, invd=mv(tinvd))
     torch.cuda.synchronize()
-    assert sc.stencil_cg.jacobi_launches == before + 1
+    assert tracing.launch_counts().get("stencil_cg jacobi", 0) == before + 1
     px, pk, pr, pe, pC = sc.stencil_cg_plain(*args, sf=sf, lam=1.0,
                                               max_iter=12, planes=True,
                                               invd=mv(tinvd))

@@ -32,6 +32,7 @@ from srmeetsps_cuda_tpu.parallel import shard_cg as jshard
 from srmeetsps_cuda_tpu.parallel import sharded as jsharded
 from srmeetsps_cuda_tpu.solve import pallas_cg
 from srmeetsps_cuda_tpu_torch import cli, interop
+from srmeetsps_cuda_tpu_torch import trace as tracing
 from srmeetsps_cuda_tpu_torch.config import SolverConfig
 from srmeetsps_cuda_tpu_torch.io.mat_loader import save_mat_dataset
 from srmeetsps_cuda_tpu_torch.io.synthetic import lambertian_dataset
@@ -416,9 +417,7 @@ def test_mesh_halo_exchange_and_all_reduce():
 def test_wrappers_take_plain_versions_on_cpu():
     """The per-step wrappers (``route="steps"``) and the persistent one
     take their plain versions on CPU shards, counting no launch."""
-    counters = (sk.prologue, sk.step_a, sk.step_b, sk.cgs_step,
-                scg.persistent)
-    before = [c.launches for c in counters]
+    before = tracing.launch_counts()
     for variant in ("std", "cgs", "jacobi"):
         got = _port_cg(variant, 2, 2, 3, route="steps")
         want = _port_cg(variant, 2, 2, 3, plain=True)
@@ -432,7 +431,7 @@ def test_wrappers_take_plain_versions_on_cpu():
         assert scg.persistent(shards) is None
         got = scg._finish(shards, p["x0"])
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert before == [c.launches for c in counters]
+    assert before == tracing.launch_counts()
     meta = scg.make_mesh_1d(2, "meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         _port_cg("std", 2, 2, 3, mesh=meta)
@@ -444,10 +443,10 @@ def test_cuda_shards_match_plain(variant):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mesh = scg.make_mesh_1d(4, "cuda")
-    before = scg.persistent.launches
+    before = tracing.launch_counts().get("shard_cg persistent", 0)
     x, k, _ = _port_cg(variant, 2, 4, 12, mesh=mesh)
     torch.cuda.synchronize()
-    assert scg.persistent.launches == before + 1
+    assert tracing.launch_counts().get("shard_cg persistent", 0) == before + 1
     px, pk, _ = _port_cg(variant, 2, 4, 12, mesh=mesh, plain=True)
     assert int(k) == int(pk)
     assert _rel_rms(x.cpu().numpy(), px.cpu().numpy()) < X_BOUND[12]

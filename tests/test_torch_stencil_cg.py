@@ -21,6 +21,7 @@ from srmeetsps_cuda_tpu.models import srps as jsrps
 from srmeetsps_cuda_tpu.solve import pallas_cg
 from srmeetsps_cuda_tpu.solve import pallas_cg_vmem as pvm
 from srmeetsps_cuda_tpu_torch import interop
+from srmeetsps_cuda_tpu_torch import trace as tracing
 from srmeetsps_cuda_tpu_torch.models import srps as tsrps
 from srmeetsps_cuda_tpu_torch.solve import stencil_cg as sc
 from srmeetsps_cuda_tpu_torch.solve.cg import tol_squared
@@ -132,13 +133,13 @@ def test_cap_runs_max_iter_plus_one():
 
 def test_wrapper_takes_plain_version_on_cpu():
     _, (tp, ts, top) = _both(16, 32, 2)
-    before = sc.stencil_cg.launches
+    before = tracing.launch_counts()
     x, k, r1, e, C = sc.stencil_cg(ts.z, top, tp.gm, tp.ktw, tp.z0t, tp.z0u,
                                    sf=2, lam=1.0, max_iter=3, planes=True)
     px, pk, pr, pe, pC = sc.stencil_cg_plain(
         ts.z, top, tp.gm, tp.ktw, tp.z0t, tp.z0u, sf=2, lam=1.0, max_iter=3,
         planes=True)
-    assert sc.stencil_cg.launches == before
+    assert tracing.launch_counts() == before
     assert C.shape == (9, 16, 32)
     for a, b in [(x, px), (k, pk), (r1, pr), (e, pe), (C, pC)]:
         assert torch.equal(a, b)
@@ -167,11 +168,11 @@ def test_cuda_kernel_matches_plain(sf):
     op = type(top)(*[mv(a) for a in top])
     gm = type(tp.gm)(*[mv(a) for a in tp.gm])
     args = (mv(ts.z), op, gm, mv(tp.ktw), mv(tp.z0t), mv(tp.z0u))
-    before = sc.stencil_cg.launches
+    before = tracing.launch_counts().get("stencil_cg", 0)
     x, k, r1, e, C = sc.stencil_cg(*args, sf=sf, lam=1.0, max_iter=12,
                                    planes=True)
     torch.cuda.synchronize()
-    assert sc.stencil_cg.launches == before + 1
+    assert tracing.launch_counts().get("stencil_cg", 0) == before + 1
     px, pk, pr, pe, pC = sc.stencil_cg_plain(*args, sf=sf, lam=1.0,
                                               max_iter=12, planes=True)
     assert int(k) == int(pk) == 13

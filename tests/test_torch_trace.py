@@ -7,7 +7,7 @@ profiler, through ``runtime.solver.solve`` and ``prepare`` +
 capture's spans share a request id, the counters count what the solve did
 (its host reads, its CG iterations, its uploaded bytes), and every record
 joins one ``user_annotation`` range of the exported trace. 96 x 128, as
-the benchmark's CPU rehearsals.
+the benchmark's CPU rehearsals. The launch registry counts by kernel name.
 """
 
 import collections
@@ -248,3 +248,23 @@ def test_profile_dir_writes_the_spans_beside_the_trace(captures, tmp_path):
         recs = [json.loads(line) for line in f]
     assert recs == trace.records()
     assert_joins(recs, chrome)
+
+
+def test_launch_registry_counts_by_name_and_reads_a_copy(monkeypatch):
+    """The launch registry, profiler or not: counts add up by name, and a
+    read is a copy that later launches and edits of it leave alone."""
+    monkeypatch.setattr(trace, "_launches", {})
+    assert trace.launch_counts() == {}
+    trace.launched("stencil_cg")
+    trace.launched("inpaint", 32)
+    trace.launched("stencil_cg jacobi", 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        trace.launched("stencil_cg")
+        trace.launched("inpaint", 32)
+    got = trace.launch_counts()
+    assert got == {"stencil_cg": 2, "inpaint": 64, "stencil_cg jacobi": 0}
+    got["stencil_cg"] = 99
+    trace.launched("cgs_cg")
+    assert got == {"stencil_cg": 99, "inpaint": 64, "stencil_cg jacobi": 0}
+    assert trace.launch_counts() == {"stencil_cg": 2, "inpaint": 64,
+                                     "stencil_cg jacobi": 0, "cgs_cg": 1}
