@@ -18,6 +18,16 @@ falls back to the CPU or to a plain version):
    profiler), and ptxas's registers and spills of ``jacobi_pass``; the
    later phases count its launches beside the CG kernels' (``inpaint``,
    ceil(sweeps / K) a capture prepared);
+2c. a capture's upload (I, z0 and the mask of ``mitten_sf2`` and of
+   ``hd_sf2``, 324 and 551 MB, as one float32 array) in turns: today's
+   pageable ``torch.as_tensor``, the pinned staging ring
+   (``device.StagingRing``) at each chunk size and slot count of
+   UPLOAD_CHUNKS_MB x UPLOAD_SLOTS, ``cudaHostRegister`` of the array +
+   copy + unregister (the control), the bare host copy into pinned memory
+   on one thread and on ATen's threads (and ``np.copyto``), and the DMA
+   from pinned memory alone: GB/s of each (median of the turns), the
+   ring's host-blocked ms, each ring's result bit for bit the pageable
+   copy's, and the ring's one-off allocation at the program's constants;
 3. each kernel against its plain PyTorch version on the card, on depth
    operators built by the port from a seeded Lambertian dataset: the C
    planes, iteration counts, x after 2 and 12 iterations and the tracked
@@ -573,6 +583,108 @@ def inpaint_vs_plain(label, dev) -> dict:
         f"{r.get('shared_bytes')} B static shared" for inst, r in
         sorted(report.items())), flush=True)
     return entry
+
+
+UPLOAD_BYTES = {"mitten_sf2": 324_403_200, "hd_sf2": 551_485_440}
+UPLOAD_CHUNKS_MB = (8, 16, 32, 64)
+UPLOAD_SLOTS = (2, 3)
+
+
+def upload_phase(label, reps: int = 9) -> dict:
+    """Phase 2c: the ways a capture's host bytes can cross to the card,
+    timed in turns on one float32 array of each size of UPLOAD_BYTES (a
+    capture's I, z0 and mask), each ring's result held bit for bit to the
+    pageable copy's. Prints and returns GB/s (median of ``reps`` turns) by
+    way, and the ring's host-blocked ms."""
+    import numpy as np
+    import torch
+
+    from srmeetsps_cuda_tpu_torch import device as devices
+
+    dev = torch.device("cuda")
+    cudart = torch.cuda.cudart()
+    threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    devices.StagingRing()
+    alloc_s = time.perf_counter() - t0
+    rings = {f"ring {mb} MB x {s}": devices.StagingRing(mb << 20, s)
+             for mb in UPLOAD_CHUNKS_MB for s in UPLOAD_SLOTS}
+    out = {"aten_threads": threads, "cpus": os.cpu_count(),
+           "ring_alloc_s": alloc_s,
+           "constants": {"chunk_mb": devices.STAGE_CHUNK >> 20,
+                         "slots": devices.STAGE_SLOTS}, "sizes": {}}
+    for name, nbytes in UPLOAD_BYTES.items():
+        n = nbytes // 4
+        a = np.random.default_rng(0).standard_normal(n, np.float32)
+        src = torch.from_numpy(a)
+        want = torch.as_tensor(a, device=dev)
+        pinned = torch.empty(n, dtype=torch.float32, pin_memory=True)
+        dst = torch.empty(n, dtype=torch.float32, device=dev)
+
+        def registered():
+            ptr = src.data_ptr()
+            torch.cuda.check_error(cudart.cudaHostRegister(ptr, nbytes, 0))
+            try:
+                dst.copy_(src)
+            finally:
+                torch.cuda.check_error(cudart.cudaHostUnregister(ptr))
+
+        def host_copy(k):
+            def go():
+                torch.set_num_threads(k)
+                try:
+                    pinned.copy_(src)
+                finally:
+                    torch.set_num_threads(threads)
+            return go
+
+        ways = {"pageable": lambda: torch.as_tensor(a, device=dev),
+                "registered": registered,
+                "host copy 1 thread": host_copy(1),
+                f"host copy {threads} threads": host_copy(threads),
+                "np.copyto": lambda: np.copyto(pinned.numpy(), a),
+                "dma from pinned": lambda: dst.copy_(pinned,
+                                                     non_blocking=True)}
+        ways.update({k: (lambda r=r: r.copy(src, dst))
+                     for k, r in rings.items()})
+        done = {k: [] for k in ways}
+        back = {k: [] for k in ways}
+        for rep in range(reps):
+            order = list(ways) if rep % 2 == 0 else list(ways)[::-1]
+            for k in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ways[k]()
+                back[k].append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                done[k].append(time.perf_counter() - t0)
+                if k.startswith(("ring", "registered")) and \
+                        not torch.equal(dst, want):
+                    raise AssertionError(f"upload {name}: {k} differs from "
+                                         "the pageable copy")
+                dst.zero_()
+        gbps = {k: nbytes / statistics.median(v) / 1e9
+                for k, v in done.items()}
+        blocked = {k: 1e3 * statistics.median(back[k]) for k in rings}
+        best = max(rings, key=gbps.get)
+        out["sizes"][name] = {"bytes": nbytes, "gbps": gbps,
+                              "ring_host_ms": blocked, "best_ring": best}
+        print(f"[{label}] upload {nbytes} B ({name}), ATen threads "
+              f"{threads} of {os.cpu_count()} CPUs, median of {reps} in "
+              "turns, GB/s: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in gbps.items() if k not in rings)
+              + "; rings (GB/s, host ms): " + ", ".join(
+                  f"{k[5:]} {gbps[k]:.2f} / {blocked[k]:.1f}"
+                  for k in rings)
+              + f"; fastest ring {best[5:]}; every ring bit-equal to the "
+              "pageable copy", flush=True)
+        del want, pinned, dst
+        torch.cuda.empty_cache()
+    print(f"[{label}] upload: the program's ring "
+          f"{devices.STAGE_CHUNK >> 20} MB x {devices.STAGE_SLOTS}, "
+          f"allocated in {1e3 * alloc_s:.1f} ms", flush=True)
+    print(json.dumps({"upload": out}), flush=True)
+    return out
 
 
 def gpu_label() -> str:
@@ -2997,6 +3109,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     inpaint_entry = inpaint_vs_plain(label, dev)
+    upload_phase(label)
     grids = [(960, 1280, 2), (240, 320, 1), (480, 640, 4)]
     # h and w multiples of neither block's tile (4 x 256, 16 x 32): partial
     # tiles on both edges.

@@ -1,17 +1,34 @@
-"""Explicit device selection and float32 precision policy.
+"""Explicit device selection, float32 precision policy, and the move of
+host arrays to a card.
 
 The JAX reference runs every contraction that matters at
 ``Precision.HIGHEST`` (srps.py:61, 247, 256, 326, 343; pre/resize.py:59-65).
 PyTorch on a CUDA card keeps float32 matmuls in full precision by default
 but runs float32 convolutions through cuDNN in TF32, which keeps about three
 decimal digits; :func:`set_precision` turns TF32 off for both.
+
+:func:`upload` moves a host array to a CUDA card through a ring of pinned
+host slots that the process allocates once per card (:class:`StagingRing`):
+a copy from pageable memory is staged by CUDA through one small pinned
+buffer, with the host blocked, at a fraction of what the bus carries.
 """
 
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 from . import trace as tracing
+
+# The staging ring of a card: STAGE_SLOTS pinned slots of STAGE_CHUNK bytes,
+# the fastest of 8-64 MB x 2-3 slots at 324 and 551 MB on an H100 (28 GB/s
+# at 551 MB against 5.9 pageable; chip_smoke.py's upload phase).
+STAGE_CHUNK = 32 << 20
+STAGE_SLOTS = 2
+
+_rings = {}  # CUDA device index -> StagingRing
 
 
 def set_precision() -> None:
@@ -47,3 +64,51 @@ def synchronize(device: torch.device) -> None:
     tracing.count("host_reads")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class StagingRing:
+    """Pinned host slots through which host arrays cross to a CUDA card.
+
+    Chunk k of an array waits for the last copy out of slot k mod S (the
+    slot's event), is copied into the slot by ATen's intra-op threads and
+    leaves it by an asynchronous copy on the destination's current stream,
+    so the host fills one slot while the copy out of the one before runs.
+    The slots are allocated once and held for the life of the ring."""
+
+    def __init__(self, chunk_bytes: int = STAGE_CHUNK,
+                 slots: int = STAGE_SLOTS):
+        self.slots = [torch.empty(chunk_bytes // 4, dtype=torch.float32,
+                                  pin_memory=True) for _ in range(slots)]
+        self.done = [torch.cuda.Event() for _ in range(slots)]
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def copy(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Queue the copy of the flat float32 host tensor ``src`` into the
+        flat device tensor ``dst`` of its size; returns once the last
+        chunk's copy is queued, with every byte of ``src`` read."""
+        step = self.slots[0].numel()
+        stream = torch.cuda.current_stream(dst.device)
+        with self.lock:
+            for start in range(0, src.numel(), step):
+                k = self.next
+                self.next = (k + 1) % len(self.slots)
+                stop = min(start + step, src.numel())
+                slot = self.slots[k][:stop - start]
+                self.done[k].synchronize()
+                slot.copy_(src[start:stop])
+                dst[start:stop].copy_(slot, non_blocking=True)
+                self.done[k].record(stream)
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The C-contiguous float32 host array ``a`` as a tensor on the CUDA
+    ``device``, moved through the card's staging ring (made at the card's
+    first upload). The copy is ordered on the current stream before any
+    later work there, and ``a`` may be overwritten as soon as this
+    returns."""
+    dst = torch.empty(a.shape, dtype=torch.float32, device=device)
+    idx = dst.device.index
+    ring = _rings.get(idx) or _rings.setdefault(idx, StagingRing())
+    ring.copy(torch.from_numpy(a).reshape(-1), dst.view(-1))
+    return dst

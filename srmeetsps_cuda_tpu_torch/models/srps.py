@@ -40,6 +40,7 @@ import torch
 
 from .. import trace as tracing
 from ..config import SolverConfig
+from ..device import upload
 from ..ops import gradients as gradops
 from ..ops import grid as gridops
 from ..ops.gradients import GradientMasks
@@ -100,12 +101,19 @@ class SRPSState(NamedTuple):
 def to_f32(a, device) -> torch.Tensor:
     """A row-major float32 tensor on ``device`` (MAT files load
     column-major, and elementwise ops would carry those strides on). A
-    host array's move is the span ``srps.prepare.upload``."""
+    host array's move is the span ``srps.prepare.upload``: to a CUDA card
+    through the card's pinned staging ring (``device.upload``, attr
+    ``pinned``; its bytes counted as ``h2d_pinned_bytes`` too)."""
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=torch.float32).contiguous()
     a = np.ascontiguousarray(a, np.float32)
-    with tracing.span("srps.prepare.upload", pinned=False):
+    device = torch.device(device)
+    pinned = device.type == "cuda"
+    with tracing.span("srps.prepare.upload", pinned=pinned):
         tracing.count("h2d_bytes", a.nbytes)
+        tracing.count("h2d_pinned_bytes", a.nbytes if pinned else 0)
+        if pinned:
+            return upload(a, device)
         return torch.as_tensor(a, device=device)
 
 

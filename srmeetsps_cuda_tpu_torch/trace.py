@@ -19,7 +19,9 @@ that name in the session's trace; ``parent`` is the enclosing span's
 Spans (all under ``srps.``, apart from any range the caller opens):
 
 * ``srps.prepare``, one per capture, and inside it ``.upload`` (each move
-  of a capture's host array to the device; counts ``h2d_bytes``),
+  of a capture's host array to the device; attr ``pinned``, true where it
+  goes through a card's pinned staging ring; counts ``h2d_bytes`` and
+  ``h2d_pinned_bytes``, the bytes moved through the ring),
   ``.mean``, ``.inpaint``, ``.bilateral``, ``.bicubic`` (attr ``factor``,
   the upsample's), ``.pad``, ``.problem`` (``build_problem``) and
   ``.state`` (``init_state``);
@@ -40,7 +42,8 @@ Spans (all under ``srps.``, apart from any range the caller opens):
 
 Counters: ``host_reads`` (each call that waits for the device: a
 tensor's value read on the host, a synchronise), ``h2d_bytes``,
-``cg_iters`` and ``glue_replays``. None of them launches a kernel.
+``h2d_pinned_bytes``, ``cg_iters`` and ``glue_replays``. None of them
+launches a kernel.
 
 :func:`records` and :func:`totals` read the store; :func:`dump` writes
 it as JSON lines (``runtime.solver.profiling`` does, beside the trace).
