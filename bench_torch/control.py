@@ -39,7 +39,8 @@ def control_readings(cell: dict, seed: int, device, conf: dict = None,
     pool = bdata.make_pool(conf["content_seed"], conf["pool"], h, w,
                            conf["sf"], conf["n"], conf["c"], conf["fx"],
                            conf["fy"], device)
-    client = Client(mix, pool, None, device, seed)
+    client = Client(mix, pool, None, device, seed,
+                    content_seed=conf["content_seed"])
     readings = []
     items = random.Random(seed).sample(range(len(pool)),
                                        min(conf["check_items"], len(pool)))

@@ -10,16 +10,23 @@ synchronous calls in one process). Its keys:
   groups in an order drawn from the seed;
 * ``entry``: ``"solve"``, the single solve the CLI and the ``--serve``
   loop run (``runtime.solver.solve`` with the fused outer loop), batch 1;
-  or ``"lockstep"``, the multi-object path (``runtime.solver.prepare`` per
-  capture, then ``parallel.batched.solve_batch(mode="lockstep")``);
+  ``"serve"``, the calls that ``--serve --dstype images`` makes for a
+  request of one location (``cli._loader("images")`` on the capture's
+  dataset folder, then that solve), batch 1; or ``"lockstep"``, the
+  multi-object path (``runtime.solver.prepare`` per capture, then
+  ``parallel.batched.solve_batch(mode="lockstep")``);
 * ``crops`` (optional): ``[h, w]`` grids; pool capture k is cropped to
   ``crops[k % len(crops)]`` about its centre, and zero-padded back by
-  ``prepare(pad_to=...)`` to its batch's largest grid.
+  ``prepare(pad_to=...)`` to its batch's largest grid;
+* ``files`` (``"serve"``): the data a rig writes, which ``files.py``
+  writes each pool capture as, a dataset folder, in set-up: the images'
+  read noise ``noise_dn`` and the depth range's top ``max_z_mm``; the
+  answers are checked against what the folders hold.
 
-A capture's latency runs from its host arrays to z, rho, s and N in host
-memory. The client keeps, for each pool item, one of its answers in the
-window, chosen from the seed, and hands the check a sample of the pool
-items, drawn from the seed.
+A capture's latency runs from its host arrays (``"serve"``: its folder's
+path) to z, rho, s and N in host memory. The client keeps, for each pool
+item, one of its answers in the window, chosen from the seed, and hands
+the check a sample of the pool items, drawn from the seed.
 """
 
 from __future__ import annotations
@@ -31,6 +38,9 @@ from typing import NamedTuple
 import numpy as np
 
 from . import data as bdata
+from . import files as bfiles
+
+ENTRIES = ("solve", "serve", "lockstep")
 
 
 class Record(NamedTuple):
@@ -43,19 +53,28 @@ class Record(NamedTuple):
 class Client:
     """Runs one mix's requests on a pool of captures."""
 
-    def __init__(self, mix: dict, pool: list, solver_cfg, device, seed: int):
-        if set(mix) - {"batch", "entry", "crops"}:
+    def __init__(self, mix: dict, pool: list, solver_cfg, device, seed: int,
+                 *, content_seed: int):
+        if set(mix) - {"batch", "entry", "crops", "files"} or \
+                mix["entry"] not in ENTRIES or \
+                ("files" in mix) != (mix["entry"] == "serve"):
             raise ValueError(f"unsupported traffic {mix}")
         self.batch = int(mix.get("batch", 1))
         self.entry = mix["entry"]
-        if (self.entry == "solve") != (self.batch == 1):
-            raise ValueError("entry 'solve' takes batch 1, 'lockstep' more")
+        if (self.entry == "lockstep") == (self.batch == 1):
+            raise ValueError("entries 'solve' and 'serve' take batch 1, "
+                             "'lockstep' more")
         crops = mix.get("crops")
         if len(pool) % self.batch or (crops and len(pool) % len(crops)):
             raise ValueError("the pool must hold whole batches and rounds "
                              "of crops")
         self.captures = ([bdata.crop(c, *crops[k % len(crops)])
                           for k, c in enumerate(pool)] if crops else pool)
+        self.folders = None
+        if self.entry == "serve":
+            self.folders = bfiles.Folders(self.captures, mix["files"],
+                                          content_seed, device)
+            self.captures = self.folders.captures
         self.pixels = [int(np.count_nonzero(c.mask)) for c in self.captures]
         self.cfg = solver_cfg
         self.device = device
@@ -110,9 +129,11 @@ class Client:
             self.tracer.pixels = [self.pixels[i] for i in items]
         self.zinit.clear()
         t0 = time.perf_counter()
-        if self.entry == "solve":
+        if self.entry != "lockstep":
+            cap = (self.load(items[0]) if self.entry == "serve"
+                   else self.captures[items[0]])
             final, metrics = solver.solve(
-                self.captures[items[0]], self.cfg,
+                cap, self.cfg,
                 RuntimeConfig(fused_outer_loop=True), device=self.device,
                 verbose=False)
             lanes = [_host(final)]
@@ -141,6 +162,13 @@ class Client:
             self.keep(i, lane)
         self.zinit.clear()
         return Record(t0, t1, iters, items)
+
+    def load(self, item: int):
+        """The port's loader on ``item``'s folder, as ``--serve --dstype
+        images`` calls it."""
+        from srmeetsps_cuda_tpu_torch import cli
+
+        return cli._loader("images")(self.folders.paths[item])
 
     def keep(self, item: int, answer: dict):
         """Reservoir choice, from the seed, of one answer per pool item."""

@@ -9,7 +9,8 @@ run's profiled pass. For each phase it prints the device events (kernels,
 copies, sets) launched in the phase's own host time (its ranges less the
 ``srps.*`` ranges inside them), their device time, that host time, and the
 idle device time within it: per lane-iteration for the outer iteration's
-phases, per capture for preprocessing's. ``--out`` writes the rows as
+phases, per capture for preprocessing's; where the mix loads dataset
+folders, the loader's mean host time a capture too. ``--out`` writes the rows as
 JSON. With no CUDA card it exits 2.
 """
 
@@ -94,7 +95,8 @@ def main(argv=None) -> int:
     pool = bdata.make_pool(conf["content_seed"], conf["pool"], h, w,
                            conf["sf"], conf["n"], conf["c"], conf["fx"],
                            conf["fy"], device)
-    client = Client(mix, pool, solver_config(conf), device, args.seed)
+    client = Client(mix, pool, solver_config(conf), device, args.seed,
+                    content_seed=conf["content_seed"])
     solver_mod, orig_prepare = client.probe_prepare()
     try:
         shapes = len({tuple(c.mask.shape) for c in client.captures})
@@ -113,6 +115,11 @@ def main(argv=None) -> int:
     for name, per, *vals in rows:
         print(f"| `{name}` | {per} | "
               + " | ".join(f"{v:.3f}" for v in vals) + " |")
+    loads = tl.ranges("load")
+    if loads:
+        print(f"load (the loader's range, on the host): "
+              f"{1e3 * sum(b - a for a, b in loads) / len(loads):.3f} ms "
+              f"a capture over {len(loads)}")
     print("totals:", json.dumps(got[1]))
     if args.out:
         with open(args.out, "w") as f:

@@ -24,7 +24,9 @@ way the answers are then held against the plain reference
 numbers compared, each beside its limit, end standard error.
 
 With no CUDA card, or fewer than the cell asks for, it exits 2 and
-prints no result.
+prints no result; where the process holds JAX or the JAX package once the
+run is over, it exits 1, names them on standard error and prints no
+result.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ from types import SimpleNamespace  # noqa: E402
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 TRACE_CAPTURES = 4  # captures of each traced pass (one batch at batch 4)
+# Top-level modules that the port must not load: JAX and the JAX package.
+FORBIDDEN = {"jax", "jaxlib", "flax", "srmeetsps_cuda_tpu"}
 
 
 def load_json(path: Path) -> dict:
@@ -152,7 +156,15 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     pool = bdata.make_pool(conf["content_seed"], conf["pool"], h, w,
                            conf["sf"], conf["n"], conf["c"], conf["fx"],
                            conf["fy"], device)
-    client = Client(mix, pool, solver_config(conf), device, seed)
+    client = Client(mix, pool, solver_config(conf), device, seed,
+                    content_seed=conf["content_seed"])
+    decoder = None
+    if client.folders is not None:
+        f = client.folders
+        decoder = f.decoder
+        log(f"wrote {f.files} PNG files, {f.png_bytes} bytes "
+            f"({f.png_bytes / len(pool):.0f} a capture) in {f.write_s:.3f} s; "
+            f"decoder {f.decoder} (its build {f.build_s:.3f} s)")
     solver_mod, orig_prepare = client.probe_prepare()
     try:
         rounds = -(-len({tuple(c.mask.shape) for c in client.captures})
@@ -269,6 +281,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
               "metrics": out_metrics, "device": device_info}
     if breakdown is not None:
         result["breakdown"] = breakdown
+    if decoder:
+        result["decoder"] = decoder  # the loader's PNG decoder
     result["checks"] = table
     return result
 
@@ -322,6 +336,10 @@ def main(argv=None) -> int:
                           bool(args.trace), torch.device("cuda", 0))
     except Exception:
         traceback.print_exc()
+        return 1
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & FORBIDDEN)
+    if loaded:
+        print(f"the run loaded {loaded}", file=sys.stderr)
         return 1
     print(json.dumps(result), flush=True)
     return 0

@@ -6,12 +6,14 @@ configuration's limits."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from bench_torch import check
 from bench_torch.control import control_readings
 from bench_torch.tests.conftest import BENCH, run_small, small
+from srmeetsps_cuda_tpu_torch.io import image_loader
 from srmeetsps_cuda_tpu_torch.models import srps
 from srmeetsps_cuda_tpu_torch.parallel import batched
 
@@ -113,8 +115,47 @@ def test_fault_is_not_correct(cell, fault, monkeypatch):
         assert EXACT[fault] in failed
 
 
+def depth_swapped(monkeypatch):
+    """Each 16-bit depth frame decoded with its two bytes swapped."""
+    orig = image_loader._decode_png
+
+    def decode(path):
+        a = orig(path)
+        return a.byteswap() if a.dtype == np.uint16 else a
+    monkeypatch.setattr(image_loader, "_decode_png", decode)
+
+
+def images_unscaled(monkeypatch):
+    """The images' grey levels taken for intensities: not scaled by
+    1/255."""
+    orig = image_loader.load_image_dataset
+
+    def load(folder):
+        got = orig(folder)
+        got.I = got.I * np.float32(255)
+        return got
+    monkeypatch.setattr(image_loader, "load_image_dataset", load)
+
+
+DECODER_FAULTS = {"depth_swapped": depth_swapped,
+                  "images_unscaled": images_unscaled}
+# The cells whose requests are dataset folders read by the port's loader.
+FOLDER_CELLS = [c for c in CELLS if small(c)[2]["entry"] == "serve"]
+
+
+@pytest.mark.parametrize("cell,fault", [(c, f) for c in FOLDER_CELLS
+                                        for f in DECODER_FAULTS])
+def test_decoder_fault_is_not_correct(cell, fault, monkeypatch):
+    DECODER_FAULTS[fault](monkeypatch)
+    res = run_small(cell, seed=11)
+    failed = [k for k, (v, lim) in res["checks"].items()
+              if lim is not None and not v <= lim]
+    print(fault, cell, "fails", failed)
+    assert res["correct"] is False and failed
+
+
 @pytest.mark.parametrize("cell", ["mitten_sf2.interactive", "hd_sf2.interactive",
-                                  "mitten_sf2.mixed4"])
+                                  "mitten_sf2.mixed4", "mitten_sf2.serve"])
 def test_control_is_not_correct(cell):
     c, conf, mix = small(cell, pool=4)
     numbers = control_readings(c, 2 ** 31 + 9, torch.device("cpu"),

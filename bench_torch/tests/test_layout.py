@@ -94,7 +94,7 @@ def test_cell_files_found_by_name(cell):
     assert set(conf["limits"]) <= set(check.NUMBERS) and conf["limits"]
     run.solver_config(conf)  # every solver key is the port's
     mix = run.load_json(run.HERE / "traffic" / f"{w['traffic']}.json")
-    assert mix["entry"] in ("solve", "lockstep")
+    assert mix["entry"] in ("solve", "serve", "lockstep")
     for m in run.cell_metrics(BENCH, cell, "per_layer"):
         assert callable(run.metric_reader(m["name"]))
 

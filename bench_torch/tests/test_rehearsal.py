@@ -32,7 +32,7 @@ def test_untraced_run(cell):
 
 
 @pytest.mark.parametrize("cell", ["mitten_sf2.interactive",
-                                  "mitten_sf2.mixed4"])
+                                  "mitten_sf2.mixed4", "mitten_sf2.serve"])
 def test_traced_run(cell):
     res = run_small(cell, trace=True)
     assert res["correct"] is True, res["checks"]
@@ -45,6 +45,11 @@ def test_traced_run(cell):
         assert 0 < m["lockstep_useful_pct"]["value"] <= 100
     else:
         assert "lockstep_useful_pct" not in m
+    if cell.endswith("serve"):
+        assert m["load_ms"]["value"] > 0
+        assert res["decoder"] in ("pillow", "native")
+    else:
+        assert "load_ms" not in m and "decoder" not in res
     assert res["device"]["window_s"] > 0
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
 
@@ -72,7 +77,7 @@ def test_each_pass_serves_every_group_in_an_order_from_the_seed():
     orders = []
     for seed in (1, 2, 3):
         client = Client(mix, pool, run.solver_config(conf), torch.device("cpu"),
-                     seed)
+                        seed, content_seed=conf["content_seed"])
         mod, orig = client.probe_prepare()
         try:
             recs = client.run(requests=8)

@@ -14,7 +14,10 @@ not, so the device runs as it does untraced. The entries:
   solve) and ``parallel.batched._iteration_lockstep`` (one of a lockstep
   batch);
 * ``depth_cg``: ``models.srps.depth_cg``, which both call;
-* ``solve_batch``: ``parallel.batched.solve_batch``.
+* ``solve_batch``: ``parallel.batched.solve_batch``;
+* ``load``: ``io.image_loader.load_image_dataset`` (the dataset folder's
+  PNG decode and float conversion, on the host), which ``cli._loader``
+  hands out.
 
 :class:`Timeline` reads a Chrome trace that ``torch.profiler`` exported:
 the device's kernels, copies and sets, each with the host time of the
@@ -73,6 +76,7 @@ class Tracer:
 
     @contextlib.contextmanager
     def installed(self):
+        from srmeetsps_cuda_tpu_torch.io import image_loader
         from srmeetsps_cuda_tpu_torch.models import srps
         from srmeetsps_cuda_tpu_torch.parallel import batched
         from srmeetsps_cuda_tpu_torch.runtime import solver
@@ -90,6 +94,7 @@ class Tracer:
              lambda _: {"lanes": self.lanes}),
             (srps, "depth_cg", "depth_cg", cg_info),
             (batched, "solve_batch", "solve_batch", None),
+            (image_loader, "load_image_dataset", "load", None),
         ]
         saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in targets]
         try:
