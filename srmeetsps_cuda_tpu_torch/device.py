@@ -16,6 +16,7 @@ buffer, with the host blocked, at a fraction of what the bus carries.
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
@@ -86,9 +87,13 @@ class StagingRing:
     def copy(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         """Queue the copy of the flat float32 host tensor ``src`` into the
         flat device tensor ``dst`` of its size; returns once the last
-        chunk's copy is queued, with every byte of ``src`` read."""
+        chunk's copy is queued, with every byte of ``src`` read. While a
+        profiler records, the host's time in the slots' fills is counted
+        as ``h2d_fill_ns``."""
         step = self.slots[0].numel()
         stream = torch.cuda.current_stream(dst.device)
+        timed = tracing.live()
+        fill_ns = 0
         with self.lock:
             for start in range(0, src.numel(), step):
                 k = self.next
@@ -96,9 +101,15 @@ class StagingRing:
                 stop = min(start + step, src.numel())
                 slot = self.slots[k][:stop - start]
                 self.done[k].synchronize()
+                if timed:
+                    t0 = time.perf_counter_ns()
                 slot.copy_(src[start:stop])
+                if timed:
+                    fill_ns += time.perf_counter_ns() - t0
                 dst[start:stop].copy_(slot, non_blocking=True)
                 self.done[k].record(stream)
+        if timed:
+            tracing.count("h2d_fill_ns", fill_ns)
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:

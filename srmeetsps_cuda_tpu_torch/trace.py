@@ -20,8 +20,9 @@ Spans (all under ``srps.``, apart from any range the caller opens):
 
 * ``srps.prepare``, one per capture, and inside it ``.upload`` (each move
   of a capture's host array to the device; attr ``pinned``, true where it
-  goes through a card's pinned staging ring; counts ``h2d_bytes`` and
-  ``h2d_pinned_bytes``, the bytes moved through the ring),
+  goes through a card's pinned staging ring; counts ``h2d_bytes``,
+  ``h2d_pinned_bytes``, the bytes moved through the ring, and
+  ``h2d_fill_ns``, the host's time copying them into the ring's slots),
   ``.mean``, ``.inpaint``, ``.bilateral``, ``.bicubic`` (attr ``factor``,
   the upsample's), ``.pad``, ``.problem`` (``build_problem``) and
   ``.state`` (``init_state``);
@@ -42,8 +43,8 @@ Spans (all under ``srps.``, apart from any range the caller opens):
 
 Counters: ``host_reads`` (each call that waits for the device: a
 tensor's value read on the host, a synchronise), ``h2d_bytes``,
-``h2d_pinned_bytes``, ``cg_iters`` and ``glue_replays``. None of them
-launches a kernel.
+``h2d_pinned_bytes``, ``h2d_fill_ns``, ``cg_iters`` and ``glue_replays``.
+None of them launches a kernel.
 
 :func:`records` and :func:`totals` read the store; :func:`dump` writes
 it as JSON lines (``runtime.solver.profiling`` does, beside the trace).
@@ -168,6 +169,11 @@ def span(name: str, **attrs):
     if not _enabled():
         return _NULL
     return _live(name, attrs)
+
+
+def live() -> bool:
+    """Whether a profiler session records now (spans and counts kept)."""
+    return _enabled()
 
 
 def count(key: str, n=1) -> None:

@@ -6,12 +6,15 @@ On the CPU: ``to_f32`` of float64, column-major, strided and empty arrays
 and of a tensor is what ``torch.as_tensor`` of the float32 row-major array
 gave (the span's attr ``pinned`` False, ``h2d_pinned_bytes`` 0), and no
 ring is made; the ring's loop rehearsed with unpinned slots and stand-in
-events (chunk edges, the wait before a slot is filled again); and
+events (chunk edges, the wait before a slot is filled again), the host's
+fill of the slots counted once an upload as ``h2d_fill_ns`` while a
+profiler records and not timed otherwise; and
 ``bench_torch/metrics/upload_pinned_pct.py`` on made-up counters.
 
 On a CUDA card (marked ``cuda``, skipped without one): the ring's copy bit
 for bit ``torch.as_tensor(a, device="cuda")`` at 1 element, one chunk less
-one, one chunk, one more, 3.5 chunks and 551 MB; the caller's array
+one, one chunk, one more, 3.5 chunks and 551 MB, its fill time counted
+once and positive; the caller's array
 overwritten at once; two arrays larger than the ring back to back, read by
 one kernel; a fused and a lockstep solve (the glue's graphs on) bit for
 bit the same solves through ``torch.as_tensor``; ``h2d_pinned_bytes``
@@ -154,6 +157,37 @@ def test_ring_chunks_rehearsed(monkeypatch, n, slots):
                              for what in ("wait", "record")]
 
 
+def test_fill_time_counted_once_an_upload_rehearsed(monkeypatch):
+    """Under the profiler, one ``h2d_fill_ns`` count an upload, positive,
+    in the upload's span; the array lands bit for bit."""
+    ring = rehearsed_ring(monkeypatch, 64, 2)
+    src = torch.arange(56, dtype=torch.float32) - 7.25
+    dst = torch.full((56,), float("nan"))
+
+    def go():
+        with tracing.span("srps.prepare.upload", pinned=True):
+            ring.copy(src, dst)
+    uploads(go)
+    (rec,) = [r for r in tracing.STORE.spans
+              if r["name"] == "srps.prepare.upload"]
+    (fill,) = rec["counts"]["h2d_fill_ns"]
+    assert isinstance(fill, int) and fill > 0
+    assert torch.equal(dst, torch.as_tensor(src.numpy()))
+
+
+def test_fill_not_timed_without_a_profiler(monkeypatch):
+    """With tracing off the ring reads no clock: one flag check."""
+    ring = rehearsed_ring(monkeypatch, 64, 2)
+
+    def clock():
+        raise AssertionError("the fill was timed with tracing off")
+    monkeypatch.setattr(devices.time, "perf_counter_ns", clock)
+    src = torch.arange(40, dtype=torch.float32)
+    dst = torch.empty(40)
+    ring.copy(src, dst)
+    assert torch.equal(dst, src)
+
+
 # -- bench_torch/metrics/upload_pinned_pct.py ------------------------------------
 
 
@@ -193,6 +227,11 @@ def parent_path(a, device):
 def test_ring_bit_equal_to_the_pageable_copy(card, n):
     a = np.random.default_rng(n).standard_normal(n, np.float32)
     got, recs = uploads(lambda: srps.to_f32(a, card))
+    (raw,) = [r["counts"]["h2d_fill_ns"] for r in tracing.STORE.spans
+              if r["name"] == "srps.prepare.upload"]
+    assert len(raw) == 1 and raw[0] > 0  # counted once an upload
+    for r in recs:
+        r["counts"].pop("h2d_fill_ns")
     assert [(r["attrs"], r["counts"]) for r in recs] == [
         ({"pinned": True}, {"h2d_bytes": a.nbytes,
                             "h2d_pinned_bytes": a.nbytes})]
