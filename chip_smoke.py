@@ -113,8 +113,9 @@ falls back to the CPU or to a plain version):
    engagement rule forced false, bit for bit equal, with the launches of
    the CG and inpaint kernels counted as expected, the ``glue_replays``
    counter at every iteration but each solve's first two (the eager and the
-   capture one; B lanes each in lockstep), and ms per outer iteration of
-   both in turns;
+   capture one; B lanes each in lockstep), a second fused solve of the
+   same key replaying every iteration from the graphs the first kept, and
+   ms per outer iteration of both in turns;
 4i. bench.py's 4K configuration (2176 x 3840, sf = 2, n = 8, c = 3) through
    ``runtime.solver.solve`` with ``"direct"`` and with ``"stencil"``, in
    turns: a finite depth, the stopping rule, outer iterations, ms per
@@ -2800,7 +2801,9 @@ def glue_graphs_phase(label, datas) -> dict:
     both ways; ``glue_replays`` every iteration but each solve's first two
     (B lanes each in lockstep) and none eager, the ``srps.iteration``
     spans' ``glue`` attribute ``"eager"``, ``"capture"``, then
-    ``"replay"``. Then ms per outer iteration of each route with and
+    ``"replay"``; a second fused solve with the graphs, which the first
+    kept (``glue.Kept``), bit for bit again and ``"replay"`` from its
+    first iteration. Then ms per outer iteration of each route with and
     without the graphs, untraced, in turns (graphs, eager, eager,
     graphs)."""
     import torch
@@ -2856,17 +2859,21 @@ def glue_graphs_phase(label, datas) -> dict:
     out = {}
     for name, fn in (("fused", fused), ("lockstep", lockstep)):
         lanes = 1 if name == "fused" else len(datas)
+        glue.drop(dev)  # the fused solve is its key's first: it captures
         on, off = run(fn, True, True), run(fn, False, True)
+        kept = [run(fn, True, True)] if name == "fused" else []
         n = max(map(len, on["energies"]))
-        for k in ("energies", "fields"):
-            same = (on[k] == off[k] if k == "energies" else all(
-                torch.equal(a, b) for fa, fb in zip(on[k], off[k])
-                for a, b in zip(fa, fb)))
-            if not same:
-                raise AssertionError(f"{name}: {k} with the glue's graphs "
-                                     "differ from the eager glue's")
+        for got in [on] + kept:
+            for k in ("energies", "fields"):
+                same = (got[k] == off[k] if k == "energies" else all(
+                    torch.equal(a, b) for fa, fb in zip(got[k], off[k])
+                    for a, b in zip(fa, fb)))
+                if not same:
+                    raise AssertionError(f"{name}: {k} with the glue's "
+                                         "graphs differ from the eager "
+                                         "glue's")
         want = expected_counts(n, captures=lanes)
-        for got in (on, off):
+        for got in [on, off] + kept:
             if got["launches"] != want:
                 raise AssertionError(f"{name}: launches {got['launches']} "
                                      f"for {n} outer iterations")
@@ -2875,6 +2882,10 @@ def glue_graphs_phase(label, datas) -> dict:
             raise AssertionError(f"{name}: glue {on['glue']}, replays "
                                  f"{on['replays']} for {n} iterations of "
                                  f"{lanes} lane(s)")
+        if any(g["glue"] != ["replay"] * n or g["replays"] != n
+               for g in kept):
+            raise AssertionError(f"{name}: a second solve of the key ran "
+                                 f"glue {kept[0]['glue']}")
         if set(off["glue"]) != {"eager"} or off["replays"] != 0:
             raise AssertionError(f"{name}: the eager run counted "
                                  f"{off['replays']} replays ({off['glue']})")
@@ -2887,7 +2898,9 @@ def glue_graphs_phase(label, datas) -> dict:
                                            "eager": [ms[1], ms[2]]}}
         print(f"[{label}] glue graphs, {name} solve of {lanes} lane(s) at "
               f"{H}x{W}: bit-equal to the eager glue over {n} outer "
-              f"iterations, glue {on['glue']}, glue_replays {on['replays']}, "
+              f"iterations, glue {on['glue']}, glue_replays {on['replays']}"
+              + (f" (a second solve of the key {kept[0]['replays']})"
+                 if kept else "") + ", "
               f"launches {on['launches']}; ms/outer-iter in turns graphs "
               f"{ms[0]:.3f}, eager {ms[1]:.3f}, eager {ms[2]:.3f}, graphs "
               f"{ms[3]:.3f}", flush=True)

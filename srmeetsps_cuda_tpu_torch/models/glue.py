@@ -26,8 +26,24 @@ the buffers, which the next iteration overwrites: a caller that keeps an
 iterate keeps a copy (``srps.snapshot``).
 
 The graphs of every solve share one memory pool for the process, so that
-after the first capture a capture finds its memory in the pool. A solve
-frees its graphs (:meth:`Glue.close`) when it ends.
+after the first capture a capture finds its memory in the pool. A lockstep
+batch (``parallel/batched.py``) and ``srps.solve_fused`` called directly
+free their graphs (:meth:`Glue.close`) when the solve ends.
+
+The single solve (``runtime/solver.py::solve``) keeps them instead: a card
+holds one :class:`Kept`, the graphs that a single solve captured with the
+problem and state tensors they read, under a key of everything a capture
+bakes in beyond those tensors (``srps.capture_key``: the grid, sf, the
+image dtype and the Python scalars the glue reads). The next solve of
+that key builds its problem into the kept problem's tensors
+(``srps.build_problem(..., into=)``), copies its initial state into the
+kept state's (:meth:`Kept.load`) and replays from its first outer
+iteration. So between solves the card holds the problem, the state, graph
+A's outputs (the depth operator) and the graphs' pool. A solve of another
+key frees the kept one (:func:`kept`) before it prepares and captures its
+own; a solve that fails frees it too (:func:`drop`). A caller keeps a copy
+of the final state (``srps.snapshot``): the next solve overwrites the kept
+one.
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ from .. import trace as tracing
 
 _pools = {}  # device index -> (pool handle, the graph that holds it, ...)
 _streams = {}  # device index -> the capture stream
+_kept = {}  # device -> the Kept single solve of that device
 
 
 def engages(device: torch.device, check) -> bool:
@@ -187,3 +204,48 @@ class Glue:
         """Free the graphs and their outputs (their memory stays in the
         pool for the next solve's capture)."""
         self.graphs.clear()
+
+
+class Kept:
+    """A card's single solve kept across solves of one ``key``: its
+    :class:`Glue` (:attr:`glue`), and the problem and the final state of
+    its last solve (:attr:`prob`, :attr:`state`; None before a solve of the
+    key has ended), whose tensors the graphs read."""
+
+    def __init__(self, device: torch.device, key):
+        self.key = key
+        self.glue = Glue(device)
+        self.prob = None
+        self.state = None
+
+    def load(self, state):
+        """``state`` in the kept state's tensors: its z, rho, s, N and dz
+        copied into them, the rest of it as it is. ``state`` keeps its own
+        tensors. Before the key's first solve has ended, ``state``."""
+        if self.state is None:
+            return state
+        return state._replace(**{
+            f: getattr(self.state, f).copy_(getattr(state, f))
+            for f in ("z", "rho", "s", "N", "dz")})
+
+
+def _slot(device: torch.device):
+    return ("cuda", _index(device)) if device.type == "cuda" else str(device)
+
+
+def kept(device: torch.device, key) -> Kept:
+    """The :class:`Kept` solve of ``key`` on ``device``: the one the device
+    holds if it has that key, else a new one that replaces it, the old
+    one's graphs and tensors freed first."""
+    got = _kept.get(_slot(device))
+    if got is None or got.key != key:
+        drop(device)
+        got = _kept[_slot(device)] = Kept(device, key)
+    return got
+
+
+def drop(device: torch.device) -> None:
+    """Free the kept solve of ``device``, if it holds one."""
+    got = _kept.pop(_slot(device), None)
+    if got is not None:
+        got.glue.close()

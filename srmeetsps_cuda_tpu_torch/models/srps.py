@@ -19,7 +19,8 @@ devicecalls.cu). The structure is the JAX package's:
 
 On a CUDA device :func:`solve_fused` replays the glue of each outer
 iteration, all but the depth CG's launch, from two CUDA graphs that the
-solve captures at its second iteration (``models/glue.py``).
+solve captures at its second iteration, or that an earlier single solve
+of the same key captured and kept (``models/glue.py``).
 
 State lives on dense ``(h, w)`` grids zeroed outside the mask. Contractions
 run in full float32 (``device.set_precision``), as the JAX package's
@@ -123,7 +124,7 @@ def to_f32(a, device) -> torch.Tensor:
 
 
 def build_problem(I, mask, K, sf: int, z0s, device,
-                  image_dtype: str = "float32") -> SRPSProblem:
+                  image_dtype: str = "float32", into=None) -> SRPSProblem:
     """Assemble the problem on ``device``.
 
     Args:
@@ -136,21 +137,42 @@ def build_problem(I, mask, K, sf: int, z0s, device,
       image_dtype: "float32" or "bfloat16": the stack is masked in f32,
          then cast (JAX srps.py:136-140); ``SI2`` sums the bf16 products
          ``I * I`` cast to f32 (srps.py:145-146).
+      into: a problem of the same grid, image dtype and K, returned with
+         this one's values written into its tensors: the mask, the image
+         stack and ``SI2`` straight, the other fields copied in.
     """
     if image_dtype not in IMAGE_DTYPES:
         raise ValueError(f"unknown image_dtype {image_dtype!r}")
-    mask = (to_f32(mask, device) != 0).to(torch.float32)
+    def buffer(field, shape, dtype=torch.float32):
+        """``into``'s tensor ``field``, else a new one."""
+        if into is not None:
+            return getattr(into, field)
+        return torch.empty(shape, dtype=dtype, device=device)
+
     h, w = mask.shape
-    I = (to_f32(I, device).permute(1, 0, 2, 3) * mask).to(
-        IMAGE_DTYPES[image_dtype])
-    c_, n_ = I.shape[:2]
+    n_, c_ = I.shape[:2]
+    # The mask, the stack and SI2 are written straight into their tensors:
+    # no second stack beside the problem's, nor a field beside it while
+    # the products' stack is held.
+    mask = buffer("mask", (h, w)).copy_(to_f32(mask, device) != 0)
+    flat = buffer("I", (c_, n_, h * w), IMAGE_DTYPES[image_dtype])
+    stack = flat.view(c_, n_, h, w)
+    # Masked in f32 and cast on the write.
+    torch.mul(to_f32(I, device).permute(1, 0, 2, 3), mask, out=stack)
+    # SI2 sums the products laid out as the images arrive, (n, c, h, w) in
+    # memory: the order of the sum over the images.
+    sq = torch.empty((n_, c_, h, w), dtype=stack.dtype,
+                     device=stack.device).permute(1, 0, 2, 3)
+    SI2 = torch.sum(torch.mul(stack, stack, out=sq).float(), dim=1,
+                    out=buffer("SI2", (c_, h, w)))
+    del sq
     masks = gridops.lr_mask(mask, sf)
     K = np.asarray(K, np.float32)
     xx, yy = gridops.meshgrid_camera(h, w, float(K[0][2]), float(K[1][2]),
                                      device=device)
     z0s = to_f32(z0s, device) * masks
-    return SRPSProblem(
-        I=I.reshape(c_, n_, h * w).contiguous(),
+    prob = SRPSProblem(
+        I=flat,
         mask=mask,
         masks=masks,
         z0s=z0s,
@@ -159,11 +181,26 @@ def build_problem(I, mask, K, sf: int, z0s, device,
         fx=float(K[0][0]),
         fy=float(K[1][1]),
         gm=GradientMasks.from_mask(mask),
-        SI2=torch.sum((I * I).float(), dim=1),
+        SI2=SI2,
         z0t=gridops.resample_masked_t(z0s, mask, masks, sf),
         ktw=make_ktw(mask, masks, sf),
         z0u=energy_planes(masks, z0s, sf),
     )
+    if into is None:
+        return prob
+    for dst, src in zip(_tensors(into), _tensors(prob)):
+        if dst is not src:
+            dst.copy_(src)
+    return into._replace(fx=prob.fx, fy=prob.fy)
+
+
+def _tensors(prob: SRPSProblem):
+    """The problem's tensors, ``gm``'s one by one."""
+    for f in prob:
+        if isinstance(f, torch.Tensor):
+            yield f
+        elif isinstance(f, tuple):
+            yield from f
 
 
 def init_state(prob: SRPSProblem, z_init) -> SRPSState:
@@ -644,6 +681,19 @@ def srps_iteration(state: SRPSState, prob: SRPSProblem, sf: int,
                      iteration=state.iteration + 1, cg_iters=cg_iters)
 
 
+def capture_key(shape, K, sf: int, cfg: SolverConfig) -> tuple:
+    """What a capture of the glue (:func:`lighting_to_operator`,
+    :func:`normals`) bakes in beyond the tensors it reads, for a problem of
+    images ``shape`` (n, c, h, w): the grid, sf and the image dtype, and the
+    Python scalars the glue reads, fx and fy (:func:`build_depth_operator`,
+    :func:`normals_from_depth`) and lam. A glue that reads another one
+    adds it here (``glue.Kept``)."""
+    n, c, h, w = shape
+    K = np.asarray(K, np.float32)
+    return ((c, n, h, w), int(sf), cfg.image_dtype, float(K[0][0]),
+            float(K[1][1]), float(cfg.lam))
+
+
 def lighting_to_operator(prob: SRPSProblem, rho, N, s, dz, lam: float,
                          check=no_check, **span):
     """The glue before the CG from one problem's ``rho``, ``N``, ``s`` and
@@ -688,17 +738,21 @@ def should_stop(state: SRPSState, cfg: SolverConfig) -> torch.Tensor:
 
 def solve_fused(state: SRPSState, prob: SRPSProblem, sf: int,
                 cfg: SolverConfig, block=(256, 4), on_iteration=None,
-                check=None):
+                check=None, graphs=None):
     """The outer loop with one host read per iteration (the stop test).
     Returns the final state and the energy trace (NaN-padded, length
     ``max_iterations + 2``). ``on_iteration(state)`` sees every iterate,
     whose z, rho, s, N and dz the next iteration may overwrite (the glue's
     graphs write them in place): it keeps a :func:`snapshot`. ``check``
     is :func:`srps_iteration`'s; on a CUDA device without it the glue
-    runs from graphs (``glue.engages``)."""
+    runs from graphs (``glue.engages``), the solve's own, freed at its
+    end, unless ``graphs`` gives a ``glue.Glue`` that the caller keeps
+    (``glue.Kept``, whose graphs read ``state`` and ``prob``)."""
     trace = torch.full((cfg.max_iterations + 2,), math.nan,
                        dtype=torch.float32, device=prob.mask.device)
-    graphs = glue.for_solve(prob.mask.device, check)
+    own = graphs is None
+    if own:
+        graphs = glue.for_solve(prob.mask.device, check)
     st = state
     try:
         while True:
@@ -712,5 +766,6 @@ def solve_fused(state: SRPSState, prob: SRPSProblem, sf: int,
             if on_iteration is not None:
                 on_iteration(st)
     finally:
-        graphs.close()
+        if own:
+            graphs.close()
     return st, trace

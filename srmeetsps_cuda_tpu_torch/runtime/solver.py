@@ -31,7 +31,7 @@ from .. import trace as tracing
 from ..config import Preferences, RuntimeConfig, SolverConfig
 from ..device import synchronize
 from ..io import writers
-from ..models import srps
+from ..models import glue, srps
 from ..ops.grid import pad_to_multiple
 from ..pre import preprocess_depth
 
@@ -56,7 +56,7 @@ class Timer:
 
 
 def prepare(data, cfg: SolverConfig, device: torch.device,
-            return_zs: bool = False, pad_to=None):
+            return_zs: bool = False, pad_to=None, into=None):
     """Preprocessing and problem/state construction on ``device``
     (SRPS.cu:100-270). ``data`` has the ``ProblemData`` fields.
 
@@ -64,7 +64,11 @@ def prepare(data, cfg: SolverConfig, device: torch.device,
     native-size preprocessing, so that objects of several sizes share one
     lane-batched solve: the smoothing and inpainting never see the pad, and
     every padded pixel lies outside the mask, where the masked operators
-    are exactly zero."""
+    are exactly zero.
+
+    ``into``: a problem whose tensors the problem is built into
+    (``srps.build_problem``), the kept single solve's; the state returned
+    has tensors of its own either way."""
     h, w = np.asarray(data.mask).shape
     sf = int(data.sf)
     if pad_to is not None:
@@ -84,7 +88,8 @@ def prepare(data, cfg: SolverConfig, device: torch.device,
                 zs = pad_to_multiple(zs, H // sf, W // sf)[0]
         with tracing.span("srps.prepare.problem"):
             prob = srps.build_problem(I, mask, data.K, sf, zs, device,
-                                      image_dtype=cfg.image_dtype)
+                                      image_dtype=cfg.image_dtype,
+                                      into=into)
         tracing.bind(prob)
         with tracing.span("srps.prepare.state"):
             state = srps.init_state(prob, z_init)
@@ -141,9 +146,32 @@ def solve(data, cfg: SolverConfig = SolverConfig(),
 
 
 def _solve(data, cfg, rt, device, prefs, verbose):
-    prob, state, zs = prepare(data, cfg, device, return_zs=True)
-    sf = int(data.sf)
     block = (prefs.block_x, prefs.block_y)
+    check = srps.check_finite if rt.nan_check else None
+    # The single solve's graphs, and the tensors they read, kept for the
+    # next solve of the same key (models/glue.py).
+    kept = None
+    if rt.fused_outer_loop and glue.engages(device, check):
+        kept = glue.kept(device, srps.capture_key(np.shape(data.I), data.K,
+                                                  data.sf, cfg))
+    try:
+        return _solve_with(kept, data, cfg, rt, device, block, check,
+                           verbose)
+    except BaseException:
+        if kept is not None:
+            # A solve that failed leaves the kept tensors half written.
+            glue.drop(device)
+        raise
+
+
+def _solve_with(kept, data, cfg, rt, device, block, check, verbose):
+    """The solve, through the :class:`glue.Kept` solve ``kept`` unless it
+    is None: the problem built into its tensors, the state copied into
+    them, and a copy of the final state returned (the next solve
+    overwrites the kept one)."""
+    prob, state, zs = prepare(data, cfg, device, return_zs=True,
+                              into=kept.prob if kept else None)
+    sf = int(data.sf)
 
     if rt.dump_iterations and rt.dump_format in ("mat", "mat5"):
         writers.dump_preprocessing(rt.dump_dir, zs, state.z, prob.mask,
@@ -165,18 +193,26 @@ def _solve(data, cfg, rt, device, prefs, verbose):
 
         viewer = LiveView()
         viewer.set_initial(state, prob.mask)
-    check = srps.check_finite if rt.nan_check else None
-
-    loop = _solve_fused if rt.fused_outer_loop else _solve_stepwise
-    final, metrics = loop(state, prob, sf, cfg, rt, block, verbose, viewer,
-                          check)
+    if kept is None:
+        loop = _solve_fused if rt.fused_outer_loop else _solve_stepwise
+        final, metrics = loop(state, prob, sf, cfg, rt, block, verbose,
+                              viewer, check)
+    else:
+        # Rebound: prepare's own tensors go, but for what a caller keeps.
+        state = kept.load(state)
+        final, metrics = _solve_fused(state, prob, sf, cfg, rt, block,
+                                      verbose, viewer, check,
+                                      graphs=kept.glue)
+        kept.prob, kept.state = prob, final
+        final = srps.snapshot(final)
     _write_outputs(final, prob.mask, rt, metrics)
     if viewer is not None:
         viewer.finish()
     return final, metrics
 
 
-def _solve_fused(state, prob, sf, cfg, rt, block, verbose, viewer, check):
+def _solve_fused(state, prob, sf, cfg, rt, block, verbose, viewer, check,
+                 graphs=None):
     # A viewer that has disabled itself keeps no iterates (the JAX package
     # takes its trace-carrying solve for any viewer, runtime/solver.py:209).
     keep_states = (rt.dump_iterations or rt.save_visualizations
@@ -191,7 +227,8 @@ def _solve_fused(state, prob, sf, cfg, rt, block, verbose, viewer, check):
 
     t = Timer(prob.mask.device).start()
     final, _ = srps.solve_fused(state, prob, sf, cfg, block,
-                                on_iteration=record, check=check)
+                                on_iteration=record, check=check,
+                                graphs=graphs)
     with tracing.span("srps.results"):
         dt = t.end()
         metrics = [{"iteration": k, "energy": tracing.read(float, e),

@@ -44,7 +44,9 @@ def one_thread():
 
 
 def as_if_on_a_card(monkeypatch):
-    """The engagement rule as on a CUDA device, the graphs rehearsed."""
+    """The engagement rule as on a CUDA device, the graphs rehearsed; no
+    kept single solve (``glue.Kept``) but those made under it."""
+    monkeypatch.setattr(glue, "_kept", {})
     rule = glue.engages
     monkeypatch.setattr(glue, "engages",
                         lambda device, check: rule(torch.device("cuda"), check))

@@ -70,7 +70,10 @@ def one_thread():
 
 
 def use_graphs(monkeypatch, on: bool, device):
-    """The engagement rule forced off, or on the CPU its rehearsal."""
+    """The engagement rule forced off, or on the CPU its rehearsal; with
+    no kept single solve (``glue.Kept``) but those made under it, which
+    go when it is undone."""
+    monkeypatch.setattr(glue, "_kept", {})
     if not on:
         monkeypatch.setattr(glue, "engages", lambda device, check: False)
     elif device.type == "cpu":
